@@ -1,0 +1,197 @@
+"""Parity of the port's soft-silhouette raster (smilify_tpu_torch.render) with
+the JAX package on the CPU.
+
+On the CPU the raster wrappers run the plain PyTorch versions of the CUDA
+kernels, so these tests hold the plain versions (and the packing, cull and
+work-list code around them, which the card runs too) to the JAX kernels run
+in interpret mode and to the all-faces oracle. The kernels themselves are
+held to the plain versions on the card by ``chip_smoke.py``.
+
+Tolerances: alpha atol 1e-5 against the JAX kernels (same culled work, f32
+sums in another order), 1e-4 against the all-faces oracle (the cull drops
+faces beyond the blur margin, tests/test_rasterizer.py), and xy gradients
+atol 5e-3 / rtol 1e-3 (tests/test_rasterizer.py: the per-pixel terms are
+O(1/σ) = 1e4 before the sums, so f32 sums in another order differ there).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from smilify_tpu.render.rasterizer import _raster_S as jax_raster_S
+from smilify_tpu.render.rasterizer import soft_silhouette as jax_soft_silhouette
+from smilify_tpu.render.rasterizer_worklist import raster_S_worklist as jax_raster_S_worklist
+
+from smilify_tpu_torch.render import rasterizer as R
+from smilify_tpu_torch.render import rasterizer_worklist as RW
+
+SIGMA = 1e-4
+ALPHA_ATOL = 1e-5
+GRAD_ATOL, GRAD_RTOL = 5e-3, 1e-3
+
+
+def _scene(seed, N, F, spread=0.8, size=0.25):
+    """Random triangles (N, F, 3, 2), validity (N, F) and distinct z (N, F, 3)."""
+    rng = np.random.RandomState(seed)
+    centre = rng.uniform(-spread, spread, (N, F, 1, 2))
+    tri = (centre + rng.uniform(-size, size, (N, F, 3, 2))).astype(np.float32)
+    valid = rng.uniform(size=(N, F)) > 0.1
+    z = rng.permutation(N * F * 3).reshape(N, F, 3).astype(np.float32) / (N * F * 3) + 0.5
+    return tri, valid, z
+
+
+def _port(fn, tri, *args):
+    """Run ``fn(tri_xy, *args)`` on the CPU; S and the tri_xy gradient for a
+    fixed random cotangent."""
+    t = torch.from_numpy(tri.copy()).requires_grad_(True)
+    S = fn(t, *args)
+    g = torch.from_numpy(np.random.RandomState(9).standard_normal(S.shape).astype(np.float32))
+    (S * g).sum().backward()
+    return S.detach().numpy(), t.grad.numpy(), g.numpy()
+
+
+def _jax_vjp(fn, tri, g):
+    S, vjp = jax.vjp(fn, jnp.asarray(tri))
+    return np.asarray(S), np.asarray(vjp(jnp.asarray(g))[0])
+
+
+def _alpha(S):
+    return 1.0 - np.exp(-S)
+
+
+# ---------------------------------------------------------------------------
+# exact pair (K1, K2)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def exact_case():
+    """One small case through the JAX exact kernels in interpret mode (slow:
+    every grid step is interpreted) and the port's exact raster."""
+    tri, valid, _ = _scene(0, 1, 40)
+    size = (32, 64)
+    S_t, g_t, gS = _port(lambda t: R.raster_S(t, torch.from_numpy(valid), size), tri)
+    S_j, g_j = _jax_vjp(lambda t: jax_raster_S(t, jnp.asarray(valid), size, SIGMA, True), tri, gS)
+    return S_t, g_t, S_j, g_j
+
+
+def test_exact_forward_matches_jax_kernel(exact_case):
+    S_t, _, S_j, _ = exact_case
+    assert S_t.shape == S_j.shape == (1, 32, 64)
+    assert S_j.max() > 1.0  # the scene covers pixels
+    np.testing.assert_allclose(_alpha(S_t), _alpha(S_j), atol=ALPHA_ATOL)
+
+
+def test_exact_gradient_matches_jax_vjp(exact_case):
+    _, g_t, _, g_j = exact_case
+    assert np.abs(g_j).max() > 0
+    np.testing.assert_allclose(g_t, g_j, atol=GRAD_ATOL, rtol=GRAD_RTOL)
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_exact_soft_silhouette_matches_jax_oracle(batched):
+    """The public entry against the JAX all-faces oracle, over several tiles
+    and chunks (F > 512 so the cull words of two chunks are used)."""
+    rng = np.random.RandomState(1)
+    N, V, F = 2, 400, 700
+    verts = np.concatenate([rng.uniform(-1.1, 1.1, (N, V, 2)),
+                            rng.uniform(0.5, 2.0, (N, V, 1))], -1).astype(np.float32)
+    verts[:, :, :2] *= 0.6
+    faces = np.stack([np.arange(F) % V, (np.arange(F) + 1) % V, (np.arange(F) * 7 + 3) % V], -1)
+    faces = faces.astype(np.int32)
+    verts[0, :5, 2] = -1.0  # behind the camera: faces made only of these are culled
+    size = (64, 96)
+    v = verts if batched else verts[0]
+    a_j = np.asarray(jax_soft_silhouette(jnp.asarray(v), jnp.asarray(faces), size, znear=0.0,
+                                         use_pallas=False))
+    a_t = R.soft_silhouette(torch.from_numpy(v), torch.from_numpy(faces), size).numpy()
+    assert a_t.shape == a_j.shape
+    assert a_j.max() > 0.99
+    np.testing.assert_allclose(a_t, a_j, atol=1e-4)
+
+
+def test_reference_raster_matches_jax_oracle():
+    tri, valid, _ = _scene(2, 1, 30)
+    verts = np.concatenate([tri.reshape(-1, 2), np.ones((90, 1), np.float32)], -1)
+    faces = np.arange(90, dtype=np.int32).reshape(30, 3)
+    a_j = np.asarray(jax_soft_silhouette(jnp.asarray(verts), jnp.asarray(faces), (40, 48),
+                                         use_pallas=False))
+    a_t = R.soft_silhouette(torch.from_numpy(verts), torch.from_numpy(faces), (40, 48),
+                            use_reference=True).numpy()
+    np.testing.assert_allclose(a_t, a_j, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# work-list pair (K3, K4)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("k_sub", [16, 2], ids=["uncapped", "capped"])
+def test_worklist_matches_jax_kernel(k_sub):
+    """k_sub=16 lists every overlapping subgroup; k_sub=2 truncates the lists
+    (checked), so the nearest-z order decides which subgroups stay."""
+    tri, valid, z = _scene(3, 2, 40)
+    size = (64, 64)
+    _, count = RW._tile_worklists(torch.from_numpy(tri), torch.from_numpy(z),
+                                  torch.from_numpy(valid), *size, SIGMA, 16)
+    n_overlap = int(count.max())
+    assert (n_overlap <= k_sub) == (k_sub == 16), n_overlap
+    args = (torch.from_numpy(z), torch.from_numpy(valid), size, SIGMA, k_sub)
+    S_t, g_t, gS = _port(RW.raster_S_worklist, tri, *args)
+    S_j, g_j = _jax_vjp(lambda t: jax_raster_S_worklist(
+        t, jnp.asarray(z), jnp.asarray(valid), size, SIGMA, k_sub, True), tri, gS)
+    assert S_j.max() > 1.0
+    np.testing.assert_allclose(_alpha(S_t), _alpha(S_j), atol=ALPHA_ATOL)
+    np.testing.assert_allclose(g_t, g_j, atol=GRAD_ATOL, rtol=GRAD_RTOL)
+
+
+def test_worklist_lists_match_jax_order():
+    """The same work lists (nearest z first) as the JAX package's top_k."""
+    from smilify_tpu.render.rasterizer_worklist import _tile_worklists as jax_lists
+
+    tri, valid, z = _scene(4, 2, 64)
+    idx_j, cnt_j = jax_lists(jnp.asarray(tri), jnp.asarray(z), jnp.asarray(valid),
+                             64, 96, SIGMA, 5)
+    idx_t, cnt_t = RW._tile_worklists(torch.from_numpy(tri), torch.from_numpy(z),
+                                      torch.from_numpy(valid), 64, 96, SIGMA, 5)
+    cnt_j, idx_j = np.asarray(cnt_j), np.asarray(idx_j)
+    np.testing.assert_array_equal(cnt_t.numpy(), cnt_j)
+    live = np.arange(5)[None, None] < cnt_j[..., None]
+    np.testing.assert_array_equal(idx_t.numpy()[live], idx_j[live])
+
+
+def test_plain_worklist_uncapped_equals_plain_exact():
+    """Uncapped, both plain versions do the same work: the same S."""
+    tri, valid, z = _scene(5, 2, 600, spread=0.9, size=0.1)
+    t, v = torch.from_numpy(tri), torch.from_numpy(valid)
+    H, W = 32, 64
+    S_e = R.exact_fwd_plain(R._pack_faces(t, v), R._tile_cull_mask(t, v, H, W, SIGMA), H, W, SIGMA)
+    idx, cnt = RW._tile_worklists(t, torch.from_numpy(z), v, H, W, SIGMA, 75)
+    S_w = RW.worklist_fwd_plain(RW._pack_faces_flat(t, v), idx, cnt, H, W, SIGMA)
+    np.testing.assert_allclose(_alpha(S_w.numpy()), _alpha(S_e.numpy()), atol=1e-6)
+
+
+def test_approx_cap_rejects_reference_raster():
+    v = torch.zeros((3, 3))
+    f = torch.zeros((1, 3), dtype=torch.int64)
+    with pytest.raises(ValueError, match="work-list"):
+        R.soft_silhouette(v, f, (32, 32), use_reference=True, approx_max_faces=800)
+
+
+def test_auto_cap_off_the_card():
+    assert R.auto_approx_max_faces((512, 512), device="cpu") is None
+
+
+def test_wrappers_never_fall_back_to_plain():
+    """A tensor that is not on the CPU goes to the kernel or raises; it never
+    reaches the plain version."""
+    face = torch.zeros((1, 1, R.FACE_CHUNK, 8), device="meta")
+    mask = torch.zeros((4,), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        R.exact_fwd(face, mask, 32, 32, SIGMA)
+    flat = torch.zeros((1, 8, 8), device="meta")
+    idx = torch.zeros((1, 1, 1), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        RW.worklist_fwd(flat, idx, idx[..., 0], 32, 32, SIGMA)
