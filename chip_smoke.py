@@ -2,13 +2,22 @@
 
     python3 chip_smoke.py
 
-Builds the raster kernels from ``smilify_tpu_torch/csrc`` with ``nvcc``,
-holds each kernel to its plain PyTorch version on the card, drives the
-port's main path (the fitter, ``SmalFitter``) in both raster modes at the
-full width of the SMILy_STICK model (a procedural spec of the same width:
-V=3025, F=5832, J=55, B=5, made from a seed) at 512², checks the results,
-and profiles a few fitter steps. Imports nothing of JAX or of the JAX
-package ``smilify_tpu``.
+Builds the kernels from ``smilify_tpu_torch/csrc`` with ``nvcc`` (one
+process per library, started together), holds each kernel to its plain
+PyTorch version on the card, drives the port's paths at the full width of
+the SMILy_STICK model (a procedural spec of the same width: V=3025, F=5832,
+J=55, B=5, made from a seed) and checks their results:
+
+  * the fitter (``SmalFitter``) in both raster modes, 1 frame at 512², with
+    a profile of a few steps at 1 and 10 frames;
+  * the bench path: ``smilify_tpu_torch.bench`` and ``tools.bench_all``'s
+    configs 1, 3, 3b and 3c (N=1 and N=10 frames, both raster modes, the
+    FP32 peak probe K5) with short timing windows;
+  * the batched fitter against independent fits, a progressive fit, and
+    ``tools.bench_corpus`` at 8 clips.
+
+Each path runs with every kernel's launch count set to 0 just before it and
+read just after. Imports nothing of JAX or of the JAX package ``smilify_tpu``.
 
 Output: progress lines, then (before the last line) one ``{"kernels": [...]}``
 JSON line and the card's ``name, power limit``, and last
@@ -18,20 +27,23 @@ without CUDA, and a directory that holds this script without the package.
 
 Bounds (``bound_ms``): the larger of the bytes each kernel must move (inputs
 read once, outputs written once) over 3.35 TB/s and its FP32 operations over
-67 TFLOP/s (published H100 SXM peaks at 700 W). Operations = the (pixel,
-face) pairs this run's data made each kernel evaluate (counted by the
-kernels themselves, after the cull and the saturation early-out) times the
-FP32 operations per pair counted from ``csrc/raster.cuh`` (an FMA counts 2;
-exp and log1p count 1 each).
+67 TFLOP/s (published H100 SXM peaks at 700 W). Raster operations = the
+(pixel, face) pairs this run's data made each kernel evaluate (counted by
+the kernels themselves, after the cull and the saturation early-out) times
+the FP32 operations per pair (``render/_kernels.py``, counted from
+``csrc/raster.cuh``); K5's = 32 streams × 2 × 128 rounds an element.
 """
 
 from __future__ import annotations
 
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 import torch
@@ -41,14 +53,27 @@ sys.path.insert(0, str(ROOT))
 
 SIZE = (512, 512)
 SIGMA = 1e-4
-STICK_WIDTH = dict(V_side=55, J=55, B=5)   # V=3025, F=5832, J=55 (SMILy_STICK: 3020, 6019, 55)
 ITERS_PER_STAGE = 10
 ALPHA_ATOL = 1e-5                          # tests/test_torch_raster.py
 GRAD_ATOL, GRAD_RTOL = 5e-3, 1e-3          # tests/test_torch_raster.py
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
-FWD_OPS_PER_PAIR = 76    # fwd_term: 3 edges × 18, min/inside/sign 14, softplus 5, ×valid, +=
-BWD_OPS_PER_PAIR = 93    # bwd_term: signed distance 68, sigmoid 4, weight 5, edge pick 5, 6 grads 11
+# K5: the plain version rounds each round once, as the kernel's FMA does, so
+# the two agree to a few ulps; one skipped block of 8 rounds moves the output
+# by 7.7e-6 relative, and rounding multiply and add apart by 4.1e-6
+PEAK_RTOL = 1e-6
+PEAK_FFMA = 256            # FFMAs in fma_peak_kernel's SASS: 32 streams × 8 unrolled rounds
+PEAK_RATE_RANGE = (0.50, 1.05)   # K5's rate as a share of PEAK_FP32_PER_S
+# BatchedFitter against independent fits: tests/test_fitter_batch.py's rtol
+# 2e-4; atol 5e-4 where the JAX test has 1e-5. That holds on the CPU, where
+# the port is deterministic; on the card the float sums of one 4-frame launch
+# run in another order than those of two 2-frame launches (the backward
+# kernels' atomicAdd, cuBLAS's kernel for another batch), and Adam turns a
+# gradient component that is only rounding noise into a step. Measured on the
+# H100: one log_beta_scales entry 1.44e-4 off (1.41e-4 past rtol, the same in
+# five repeats), every other field within 1e-5; atol is that worst
+# difference with about 3.5× headroom.
+BATCH_RTOL, BATCH_ATOL = 2e-4, 5e-4
 
 
 def log(msg):
@@ -63,13 +88,6 @@ def fail(msg):
 def check(cond, msg):
     if not cond:
         fail(msg)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, reps, warmup=2):
@@ -113,16 +131,19 @@ def scene(spec, n_frames, dev):
     return tri[..., :2].contiguous(), tri[..., 2].contiguous(), valid
 
 
-def kernel_phase(spec, n_frames, dev, timed):
-    """K1-K4 against their plain versions on the card at the main path's
-    shapes; returns one record per kernel."""
+def kernel_phase(spec, n_frames, size, dev, timed):
+    """K1-K4 against their plain versions on the card at one shape that the
+    driven paths launch (``n_frames`` frames at ``size``², the work lists
+    capped as the fitting CLIs cap them there); returns one record per
+    kernel."""
     from smilify_tpu_torch.render import rasterizer as R
     from smilify_tpu_torch.render import rasterizer_worklist as RW
+    from smilify_tpu_torch.render._kernels import BWD_OPS_PER_PAIR, FWD_OPS_PER_PAIR
 
-    H, W = SIZE
+    H, W = size
     N = n_frames
     T = R._tile_grid(H, W)[2]
-    k_sub = math.ceil(R.auto_approx_max_faces(SIZE, device=dev) / R.FACE_GROUP)
+    k_sub = math.ceil(R.auto_approx_max_faces(size, device=dev) / R.FACE_GROUP)
     tri, z, valid = scene(spec, N, dev)
     face, mask = R._pack_faces(tri, valid), R._tile_cull_mask(tri, valid, H, W, SIGMA)
     flat = RW._pack_faces_flat(tri, valid)
@@ -152,16 +173,17 @@ def kernel_phase(spec, n_frames, dev, timed):
         out = kernel(*args, work=work)
         ref = plain(*args)
         torch.cuda.synchronize()
-        check(bool(torch.isfinite(out).all()), f"{name}: non-finite output (N={N})")
+        at = f"N={N}, {H}x{W}"
+        check(bool(torch.isfinite(out).all()), f"{name}: non-finite output ({at})")
         if is_fwd:
             err = float((torch.exp(-ref) - torch.exp(-out)).abs().max())
             ok = err <= ALPHA_ATOL
-            check(float(out.max()) > 1.0, f"{name}: the mesh covers no pixel (N={N})")
+            check(float(out.max()) > 1.0, f"{name}: the mesh covers no pixel ({at})")
         else:
             err = float((out - ref).abs().max())
             ok = bool(torch.isclose(out, ref, atol=GRAD_ATOL, rtol=GRAD_RTOL).all())
-            check(float(ref.abs().max()) > 0, f"{name}: zero gradient (N={N})")
-        check(ok, f"{name}: kernel disagrees with its plain version (N={N}, max abs err {err})")
+            check(float(ref.abs().max()) > 0, f"{name}: zero gradient ({at})")
+        check(ok, f"{name}: kernel disagrees with its plain version ({at}, max abs err {err})")
         pairs = int(work.sum()) * R.FACE_GROUP * R.TILE_PIX
         rec = {"name": name, "route": "cuda", "source": "smilify_tpu_torch/csrc/raster.cu",
                "replaces": replaces, "launches": None, "max_abs_err": err}
@@ -170,7 +192,7 @@ def kernel_phase(spec, n_frames, dev, timed):
             rec["plain_ms"] = cuda_ms(lambda: plain(*args), reps=2, warmup=1)
             b_ms, b_by = bound(nbytes(*inputs, out), pairs * ops_per_pair)
             rec.update(bound_ms=b_ms, bound_by=b_by, library_ms=None)
-        log(f"  N={N} {name}: max abs err {err:.3g}, pairs {pairs}"
+        log(f"  {at} {name}: max abs err {err:.3g}, pairs {pairs}"
             + (f", {rec['ms']:.4f} ms (plain {rec['plain_ms']:.2f} ms, bound "
                f"{rec['bound_ms']:.4f} ms by {rec['bound_by']})" if timed else ""))
         records.append(rec)
@@ -180,9 +202,72 @@ def kernel_phase(spec, n_frames, dev, timed):
 def kernel_wrappers():
     from smilify_tpu_torch.render import rasterizer as R
     from smilify_tpu_torch.render import rasterizer_worklist as RW
+    from smilify_tpu_torch.tools.peak import fma_peak
 
     return {"exact_fwd": R.exact_fwd, "exact_bwd": R.exact_bwd,
-            "worklist_fwd": RW.worklist_fwd, "worklist_bwd": RW.worklist_bwd}
+            "worklist_fwd": RW.worklist_fwd, "worklist_bwd": RW.worklist_bwd,
+            "fma_peak": fma_peak}
+
+
+def zero_counts():
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+        if hasattr(fn, "frames"):
+            fn.frames = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
+def sass_summary(lib, kernel):
+    """Opcode counts of ``kernel`` in the SASS of ``lib`` (None without cuobjdump)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    ops, inside = Counter(), False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+        elif inside:
+            m = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+            if m:
+                ops[m.group(1)] += 1
+    return ops
+
+
+def peak_phase(dev):
+    """K5 against its plain version on the card at a small shape and at the
+    JAX probe's shape, then timed at that shape; returns its record."""
+    from smilify_tpu_torch.tools import peak
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    errs = []
+    for shape in ((8, 1024), peak.SHAPE):
+        x = torch.rand(shape, generator=g, device=dev) + 0.5
+        out, ref = peak.fma_peak(x), peak.fma_peak_plain(x)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()), f"fma_peak: non-finite output at {shape}")
+        rel = float(((out - ref).abs() / ref.abs()).max())
+        log(f"  fma_peak {shape}: max rel err {rel:.3g} against its plain version")
+        check(rel <= PEAK_RTOL, f"fma_peak disagrees with its plain version at {shape} ({rel})")
+        errs.append(float((out - ref).abs().max()))
+    ms = cuda_ms(lambda: peak.fma_peak(x), reps=50, warmup=5)
+    plain_ms = cuda_ms(lambda: peak.fma_peak_plain(x), reps=2, warmup=1)
+    b_ms, b_by = bound(nbytes(x, out), peak.flops(x.numel()))
+    rate = peak.flops(x.numel()) / (ms * 1e-3)
+    log(f"  fma_peak {tuple(x.shape)}: {ms:.4f} ms = {rate / 1e12:.2f} TFLOP/s "
+        f"({100 * rate / PEAK_FP32_PER_S:.1f}% of 67), plain {plain_ms:.2f} ms, bound "
+        f"{b_ms:.4f} ms by {b_by}")
+    lo, hi = PEAK_RATE_RANGE
+    check(lo * PEAK_FP32_PER_S <= rate <= hi * PEAK_FP32_PER_S,
+          f"fma_peak rate {rate / 1e12:.2f} TFLOP/s outside {lo:.0%}-{hi:.0%} of 67 TFLOP/s")
+    return {"name": "fma_peak", "route": "cuda", "source": "smilify_tpu_torch/csrc/peak.cu",
+            "replaces": "tools/bench_all.py:108", "launches": None, "max_abs_err": max(errs),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
 
 
 def drive_fitter(spec, data, cap, dev):
@@ -220,11 +305,6 @@ def silhouette(fitter, cap):
         ndc, _ = _project_frames(fitter.camera, fitter.params.fov, verts, joints, SIZE)
         return soft_silhouette(ndc, fitter.spec.faces, SIZE, znear=fitter.camera.znear,
                                approx_max_faces=cap)
-
-
-def iou(a, b):
-    a, b = a > 0.5, b > 0.5
-    return float((a & b).sum()) / max(float((a | b).sum()), 1.0)
 
 
 def reference_phase(spec, dev):
@@ -297,6 +377,112 @@ def profile_phase(spec, data, dev, mode, cap):
         log(f"    {us / 1e3 / steps:8.4f} ms  {n / steps:5.0f}x  {name[:100]}")
 
 
+def bench_phase(spec, spec_name, dev):
+    """The bench path at full width with short timing windows:
+    ``smilify_tpu_torch.bench``, then ``tools.bench_all``'s configs 1, 3, 3b
+    and 3c. Checks every rate, the capped raster's IoU and which kernels the
+    fitter configs launched with how many frames; returns the path's launch
+    counts."""
+    from smilify_tpu_torch import bench
+    from smilify_tpu_torch.tools import bench_all
+
+    quick = dict(repeats=1, target_s=0.0)
+    zero_counts()
+    head = bench.run(spec, spec_name, SIZE, **quick)
+    report = bench_all.run(spec, only=["config1", "config3_", "config3b", "config3c"],
+                           size=SIZE[0], **quick)
+    counts = read_counts()
+    log("  bench: " + json.dumps(head))
+    for key, res in report.items():
+        log(f"  bench_all {key}: " + json.dumps(res))
+
+    def positive(x):
+        return isinstance(x, float) and math.isfinite(x) and x > 0
+
+    check(head["raster_mode"].startswith("worklist_cap_800"), "bench: not in the CLI-default mode")
+    for k in ("value", "single_dispatch_iters_per_sec", "exact_single_dispatch_iters_per_sec",
+              "exact_chained10_iters_per_sec"):
+        check(positive(head[k]), f"bench: {k} = {head[k]}")
+    check(all(positive(v) for v in report["config1_smil_forward_stick"].values()),
+          "bench_all config1: a rate is not finite and positive")
+    peak = report["fp32_fma_peak_gflops_measured"] * 1e9
+    lo, hi = PEAK_RATE_RANGE
+    check(lo * PEAK_FP32_PER_S <= peak <= hi * PEAK_FP32_PER_S,
+          f"bench_all: FP32 peak {peak / 1e12:.2f} TFLOP/s outside {lo:.0%}-{hi:.0%} of 67")
+    expect = {"config3_smalfitter_512": (1, ("exact_fwd", "exact_bwd")),
+              "config3b_smalfitter_512_window10": (10, ("exact_fwd", "exact_bwd")),
+              "config3c_smalfitter_512_window10_worklist": (10, ("worklist_fwd", "worklist_bwd"))}
+    for key, (frames, used) in expect.items():
+        res = report[key]
+        for k in ("step_ms", "iters_per_sec", "chained10_step_ms", "chained10_iters_per_sec",
+                  "raster_work_bound_gflops", "raster_work_bound_over_peak_pct"):
+            check(positive(res[k]), f"bench_all {key}: {k} = {res[k]}")
+        for k, n in res["kernel_launches"].items():
+            check((n > 0) == (k in used), f"bench_all {key}: kernel {k} launched {n} times")
+        check(all(res["kernel_frames_per_launch"].get(k) == frames for k in used),
+              f"bench_all {key}: frames per launch {res['kernel_frames_per_launch']}, "
+              f"expected {frames}")
+    iou_c = report["config3c_smalfitter_512_window10_worklist"]["iou_vs_exact"]
+    check(iou_c >= 0.99, f"bench_all config3c: capped IoU against exact {iou_c} below 0.99")
+    log(f"  launches over the bench path: {counts}")
+    check(all(n > 0 for n in counts.values()), "bench path: a kernel was never launched")
+    return counts
+
+
+def batched_phase(spec, spec_name, dev):
+    """BatchedFitter (2 clips × 2 frames at 128²) against independent
+    SmalFitter runs, a progressive fit, and bench_corpus at 8 clips."""
+    from smilify_tpu_torch.fitter.fitter import FitData, FitParams, SmalFitter, synthetic_fit_data
+    from smilify_tpu_torch.fitter.fitter_batch import BatchedFitter
+    from smilify_tpu_torch.fitter.progressive import ProgressiveFitter
+    from smilify_tpu_torch.fitter.stages import StageWeights, test_schedule
+    from smilify_tpu_torch.tools import bench_corpus
+
+    size, S, N = (128, 128), 2, 2
+    flat = synthetic_fit_data(spec, S * N, size)
+    clips = FitData(rgb=None, sil=flat.sil.reshape(S, N, *size),
+                    joints=flat.joints.reshape(S, N, -1, 2),
+                    visibility=flat.visibility.reshape(S, N, -1))
+    # tests/test_fitter_batch.py's schedule: the stage-0 freeze path, then every term
+    schedule = [StageWeights(1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 3, 1e-2),
+                StageWeights(1.0, 0.5, 0.1, 0.01, 0.01, 0.01, 0.1, 4, 1e-2)]
+    zero_counts()
+    batched = BatchedFitter(spec, clips, size, device=dev)
+    batched.fit(schedule)
+    counts = read_counts()
+    frames = {k: kernel_wrappers()[k].frames for k in ("exact_fwd", "exact_bwd")}
+    log(f"  batched fit: launches {counts}, frames {frames}")
+    check(counts["exact_fwd"] == counts["exact_bwd"] == 4 and
+          all(frames[k] == 4 * S * N for k in frames) and counts["worklist_fwd"] == 0,
+          "batched fit: expected one exact launch of all S·N frames a raster step")
+    worst = 0.0
+    for s in range(S):
+        single = SmalFitter(spec, FitData(rgb=None, sil=clips.sil[s], joints=clips.joints[s],
+                                          visibility=clips.visibility[s]), size, device=dev)
+        single.fit(schedule)
+        got = batched.sequence_params(s)
+        for k in FitParams.fields():
+            a, b = getattr(got, k), getattr(single.params, k)
+            err = float(((a - b).abs() / (BATCH_ATOL + BATCH_RTOL * b.abs())).max())
+            log(f"    clip {s} {k}: max abs diff {float((a - b).abs().max()):.3g} "
+                f"({err:.3g} of the tolerance)")
+            worst = max(worst, err)
+    check(worst <= 1.0, f"batched fit differs from independent fits ({worst:.3g} × tolerance)")
+
+    data = synthetic_fit_data(spec, 1, SIZE)
+    prog = ProgressiveFitter(spec, data, SIZE, scales=(1, 4, 2, 1), device=dev)
+    losses = [float(x) for x in prog.fit(test_schedule(5), chunk=5)]
+    log(f"  progressive fit (scales 1, 4, 2, 1; 4 × 5 steps): stage losses {losses}")
+    check(all(math.isfinite(x) for x in losses) and set(prog._fitters) == {1, 2, 4},
+          "progressive fit: non-finite loss or a scale not run")
+
+    res = bench_corpus.run(spec, spec_name, clips=8, size=256, chunk=10)
+    log("  bench_corpus: " + json.dumps(res))
+    check(all(math.isfinite(res[k]) and res[k] > 0 for k in
+              ("single_clip_iter_ms", "batched_step_ms", "speedup_vs_sequential")),
+          "bench_corpus: a rate is not finite and positive")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs an NVIDIA GPU")
@@ -304,10 +490,12 @@ def main():
 
     check(Path(smilify_tpu_torch.__file__).resolve().parent.parent == ROOT,
           f"smilify_tpu_torch imported from {smilify_tpu_torch.__file__}, not beside this script")
-    from smilify_tpu_torch.core.spec import toy_model_spec
+    from smilify_tpu_torch._device import card_line
+    from smilify_tpu_torch.bench import load_spec
     from smilify_tpu_torch.fitter.fitter import synthetic_fit_data
     from smilify_tpu_torch.render import _kernels
     from smilify_tpu_torch.render.rasterizer import auto_approx_max_faces
+    from smilify_tpu_torch.utils.visualization import silhouette_iou
 
     t_start = time.perf_counter()
     card = card_line()
@@ -317,22 +505,35 @@ def main():
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
 
-    log("[1/5] build")
+    log("[1/7] build")
     t0 = time.perf_counter()
-    lib = _kernels.build()
-    log(f"  built {lib.name} in {time.perf_counter() - t0:.1f} s")
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            log("  ptxas: " + line.strip())
+    libs = _kernels.build_all()
+    log(f"  built {', '.join(p.name for p in libs.values())} in {time.perf_counter() - t0:.1f} s")
+    for lib in libs.values():
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log("  ptxas: " + line.strip())
+    ops = sass_summary(libs["peak"], "fma_peak_kernel")
+    if ops is None:
+        log("  SASS: no cuobjdump")
+    else:
+        log(f"  SASS of fma_peak_kernel: {ops['FFMA']} FFMA of {sum(ops.values())} "
+            f"instructions; {dict(ops.most_common())}")
+        check(ops["FFMA"] == PEAK_FFMA,
+              f"fma_peak_kernel has {ops['FFMA']} FFMA in its SASS, expected {PEAK_FFMA}")
 
-    spec = toy_model_spec(**STICK_WIDTH, device=dev)
-    log(f"  spec: V={spec.n_verts} F={spec.n_faces} J={spec.n_joints} B={spec.n_betas}")
+    spec, spec_name = load_spec(device=dev)
+    log(f"  spec: {spec_name}, B={spec.n_betas}")
 
-    log("[2/5] kernels against their plain versions at 512²")
-    records = kernel_phase(spec, 1, dev, timed=True)
-    kernel_phase(spec, 4, dev, timed=False)
-
-    log("[3/5] main path: SmalFitter, 4 stages × 10 steps, 1 frame at 512²")
+    log("[2/7] kernels against their plain versions at the driven paths' shapes")
+    records = kernel_phase(spec, 1, SIZE, dev, timed=True)
+    # frames a launch × image: the fitter's profile and bench_all's N=10
+    # configs; bench_corpus (8 clips at 256²); the batched fitter and the
+    # progressive fit's coarse scales (128²)
+    for n_frames, size in ((4, SIZE), (10, SIZE), (8, (256, 256)), (4, (128, 128))):
+        kernel_phase(spec, n_frames, size, dev, timed=False)
+    records.append(peak_phase(dev))
+    log("[3/7] main path: SmalFitter, 4 stages × 10 steps, 1 frame at 512²")
     data = synthetic_fit_data(spec, 1, SIZE)
     cover = float(data.sil.mean())
     log(f"  target silhouette covers {cover:.4f} of the image")
@@ -343,10 +544,9 @@ def main():
     counts, fitters = {}, {}
     for mode, (mode_cap, used) in modes.items():
         drive_fitter(spec, data, mode_cap, dev)          # warm-up (allocator, cuBLAS)
-        for fn in kernel_wrappers().values():
-            fn.launches = 0
+        zero_counts()
         losses, seconds, last, fitter = drive_fitter(spec, data, mode_cap, dev)
-        counts[mode] = {name: fn.launches for name, fn in kernel_wrappers().items()}
+        counts[mode] = read_counts()
         fitters[mode] = fitter
         log(f"  {mode} (approx_max_faces={mode_cap}): launches {counts[mode]}")
         for stage, (ls, s) in enumerate(zip(losses, seconds)):
@@ -366,23 +566,33 @@ def main():
             check((n > 0) == (k in used), f"{mode}: kernel {k} launched {n} times")
         verts, _ = fitter.forward_frames()
         check(bool(torch.isfinite(verts).all()), f"{mode}: non-finite fitted vertices")
-    for rec in records:
+    for rec in records[:4]:
         mode = "exact" if rec["name"].startswith("exact") else "capped"
         rec["launches"] = counts[mode][rec["name"]]
 
     for mode, fitter in fitters.items():
-        log(f"  {mode} fit: IoU with the target {iou(silhouette(fitter, None), data.sil):.4f}")
+        log(f"  {mode} fit: IoU with the target "
+            f"{silhouette_iou(silhouette(fitter, None), data.sil):.4f}")
     f = fitters["exact"]
-    iou_cap = iou(silhouette(f, cap), silhouette(f, None))
+    iou_cap = silhouette_iou(silhouette(f, cap), silhouette(f, None))
     log(f"  IoU of capped (cap {cap}) against exact on the exact fit's pose: {iou_cap:.4f}")
     check(iou_cap >= 0.99, "capped raster IoU against exact below 0.99")
 
-    log("[4/5] references")
+    log("[4/7] references")
     reference_phase(spec, dev)
 
-    log("[5/5] where the time goes")
-    for mode, (mode_cap, _) in modes.items():
-        profile_phase(spec, data, dev, mode, mode_cap)
+    log("[5/7] where the time goes: 1 and 10 frames")
+    data10 = synthetic_fit_data(spec, 10, SIZE)
+    for frames, d in ((1, data), (10, data10)):
+        for mode, (mode_cap, _) in modes.items():
+            profile_phase(spec, d, dev, f"{mode}, {frames} frame(s),", mode_cap)
+
+    log("[6/7] bench path: bench, bench_all configs 1, 3, 3b, 3c (short windows)")
+    bench_counts = bench_phase(spec, spec_name, dev)
+    records[4]["launches"] = bench_counts["fma_peak"]
+
+    log("[7/7] batched and progressive fitters, bench_corpus")
+    batched_phase(spec, spec_name, dev)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}), flush=True)

@@ -341,10 +341,10 @@ class SmalFitter:
         self.use_reference = use_reference
         self.approx_max_faces = approx_max_faces
         self.camera = default_camera(device=self.device)
-        self.n_frames = int(self.data.joints.shape[0])
-        self.params = init_params(self.spec, self.n_frames, self.shape_prior)
+        self._init_params_from_data(self.data)
 
-        # stage-0 torso-only visibility; joints are the LAST axis
+        # stage-0 torso-only visibility; joints are the LAST axis, so this
+        # also covers (S, N, K) batched data
         vis = self.data.visibility
         torso_vis = torch.zeros_like(vis)
         if self.spec.torso_joints:
@@ -352,8 +352,16 @@ class SmalFitter:
             torso_vis[..., torso] = vis[..., torso]
         self._torso_visibility = torso_vis
 
+    def _init_params_from_data(self, data: FitData):
+        """Read the frame count off the targets and allocate the initial
+        parameters (the batched corpus fitter overrides this: its leading
+        axis is clips, not frames)."""
+        self.n_frames = int(data.joints.shape[0])
+        self.params = init_params(self.spec, self.n_frames, self.shape_prior)
+
     def _total_loss(self, params: FitParams, weights: StageWeights, visibility):
-        """Full loss + component dict for one step."""
+        """Full loss + component dict for one step (overridden by the
+        multi-sequence :class:`~smilify_tpu_torch.fitter.fitter_batch.BatchedFitter`)."""
         total, objs = forward_losses(
             self.spec, params, self.data, weights,
             self.pose_prior, self.limit_prior, self.shape_prior,

@@ -18,7 +18,8 @@ Two kernels do the work, each with a plain-PyTorch version of the same
 function beside it (``exact_fwd`` / ``exact_fwd_plain``, ``exact_bwd`` /
 ``exact_bwd_plain``). A wrapper launches its CUDA kernel for a CUDA tensor
 (a build or launch failure raises) and runs the plain version for a CPU
-tensor; each counts its launches in ``<wrapper>.launches``.
+tensor; each counts its launches in ``<wrapper>.launches`` and the frames
+those launches took in ``<wrapper>.frames``.
 
 The TPU-only plumbing of the JAX package has no counterpart here: its SMEM
 budget for the scalar-prefetched cull mask and the frame sub-batching it
@@ -298,10 +299,12 @@ def exact_fwd(face_data, mask, H, W, sigma, work=None):
             "smil_exact_fwd", face_data.data_ptr(), mask.data_ptr(), S.data_ptr(),
             _kernels.ptr(work), N, C, H, W, 1.0 / sigma, _kernels.stream())
     exact_fwd.launches += 1
+    exact_fwd.frames += N
     return S
 
 
 exact_fwd.launches = 0
+exact_fwd.frames = 0
 
 
 # ---------------------------------------------------------------------------
@@ -352,10 +355,12 @@ def exact_bwd(face_data, mask, gS_tiles, H, W, sigma, work=None):
             "smil_exact_bwd", face_data.data_ptr(), mask.data_ptr(), gS_tiles.data_ptr(),
             dface.data_ptr(), _kernels.ptr(work), N, C, H, W, 1.0 / sigma, _kernels.stream())
     exact_bwd.launches += 1
+    exact_bwd.frames += N
     return dface
 
 
 exact_bwd.launches = 0
+exact_bwd.frames = 0
 
 
 # ---------------------------------------------------------------------------

@@ -126,10 +126,12 @@ def worklist_fwd(face_flat, idx, count, H, W, sigma, work=None):
             S.data_ptr(), _kernels.ptr(work), N, F8, k_sub, H, W, 1.0 / sigma,
             _kernels.stream())
     worklist_fwd.launches += 1
+    worklist_fwd.frames += N
     return S
 
 
 worklist_fwd.launches = 0
+worklist_fwd.frames = 0
 
 
 # ---------------------------------------------------------------------------
@@ -180,10 +182,12 @@ def worklist_bwd(face_flat, idx, count, gS_tiles, H, W, sigma, work=None):
             gS_tiles.data_ptr(), dface.data_ptr(), _kernels.ptr(work), N, F8, k_sub, H, W,
             1.0 / sigma, _kernels.stream())
     worklist_bwd.launches += 1
+    worklist_bwd.frames += N
     return dface
 
 
 worklist_bwd.launches = 0
+worklist_bwd.frames = 0
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,247 @@
+"""The fitter configs of ``tools/bench_all.py`` on the card (port).
+
+    python -m smilify_tpu_torch.tools.bench_all [--only config3 ...] [--model PKL]
+        [--out build/bench_all.json] [--device cuda]
+
+Configs:
+  config1_smil_forward_stick                   SMIL forward at batch 1 and 64
+  config3_smalfitter_512                       fitter step, 1 frame, exact raster
+  config3b_smalfitter_512_window10             fitter step, 10 frames, exact raster
+  config3c_smalfitter_512_window10_worklist    10 frames, work-list raster capped at 800,
+                                               plus the capped raster's IoU against exact
+  config3d_smalfitter_512_window10_worklist700 10 frames, cap 700, plus IoU
+
+The fitter configs share one measurement of the card's FP32 FMA peak (K5,
+``tools/peak.py``), the denominator of ``raster_work_bound_over_peak_pct``.
+Not ported yet: config2 (3D registration) and configs 4, 4b, 4c, 5a-5c (the
+regressors), which wait for the slices that bring their modules.
+
+The model is ``--model``'s pickle or the STICK-width toy spec
+(``smilify_tpu_torch.bench``). Timing: ``tools/_timing.timeit_chain``, the
+step and its two modes as in ``smilify_tpu_torch.bench``. Results go to
+``--out`` (default ``build/bench_all.json`` at the root of the checkout);
+with ``--only`` they merge into that file. The report is printed as one
+JSON line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from smilify_tpu_torch._device import card_line, resolve_device
+from smilify_tpu_torch.bench import fit_step, load_spec, time_modes
+from smilify_tpu_torch.core.lbs import smil_forward
+from smilify_tpu_torch.fitter.fitter import FitParams, synthetic_fit_data
+from smilify_tpu_torch.fitter.stages import OPT_WEIGHTS
+from smilify_tpu_torch.render import rasterizer as R
+from smilify_tpu_torch.render import rasterizer_worklist as RW
+from smilify_tpu_torch.render._kernels import BWD_OPS_PER_PAIR, FWD_OPS_PER_PAIR
+from smilify_tpu_torch.render.cameras import default_camera
+from smilify_tpu_torch.render.rasterizer import soft_silhouette
+from smilify_tpu_torch.tools._timing import timeit_chain
+from smilify_tpu_torch.tools.peak import SHAPE, flops, fma_peak
+from smilify_tpu_torch.utils.visualization import silhouette_iou
+
+CONFIGS = (
+    "config1_smil_forward_stick",
+    "config3_smalfitter_512",
+    "config3b_smalfitter_512_window10",
+    "config3c_smalfitter_512_window10_worklist",
+    "config3d_smalfitter_512_window10_worklist700",
+)
+# config → (frames, work-list cap or None for exact)
+FITTER_CONFIGS = {CONFIGS[1]: (1, None), CONFIGS[2]: (10, None),
+                  CONFIGS[3]: (10, 800), CONFIGS[4]: (10, 700)}
+PUBLISHED_FP32_PEAK_GFLOPS = 67_000.0   # H100 SXM, FP32 outside the tensor cores, 700 W
+OUT = Path(__file__).resolve().parents[2] / "build" / "bench_all.json"
+
+
+def bench_forward(spec, repeats=3, target_s=1.0):
+    """SMIL forward (no gradient) at batch 1 and 64: ms and samples/s."""
+    res = {}
+    for batch in (1, 64):
+        rng = np.random.RandomState(0)
+        betas = torch.as_tensor(rng.randn(batch, spec.n_betas).astype(np.float32) * 0.3)
+        theta = torch.as_tensor(rng.randn(batch, spec.n_joints, 3).astype(np.float32) * 0.1)
+
+        @torch.no_grad()
+        def chain(carry):
+            b, t = carry
+            verts = smil_forward(spec, b, t).verts
+            # fold the output back in: every iteration depends on the last
+            return b * (1.0 - 1e-5) + torch.mean(verts) * 1e-7, t
+
+        dt = timeit_chain(chain, (betas.to(spec.device), theta.to(spec.device)),
+                          n1=64, n2=256, repeats=repeats, target_s=target_s)
+        res[f"b{batch}_ms"] = dt * 1000
+        res[f"b{batch}_samples_per_sec"] = batch / dt
+    return res
+
+
+def measure_fp32_fma_peak_gflops(device="cuda", repeats=3, target_s=1.0):
+    """The card's FP32 FMA rate in GFLOP/s, measured with K5 (``fma_peak``,
+    a hand-written CUDA kernel) at the JAX probe's shape (2048, 1024): one
+    read and one write of global memory against 8192 FP32 operations an
+    element, so the rate is the FMA pipes'. Self-chained as the JAX probe is:
+    the output feeds the next launch (it grows ~82× a launch and reaches inf
+    after ~20; the FMA rate does not depend on the values)."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise RuntimeError("the FP32 peak is a property of the card: pass a CUDA device")
+    x = torch.full(SHAPE, 0.5, dtype=torch.float32, device=dev)
+    dt = timeit_chain(fma_peak, x, n1=4, n2=16, repeats=repeats, target_s=target_s)
+    return flops(x.numel()) / dt / 1e9
+
+
+def measure_worklist_iou(spec, cap, size=512):
+    """Silhouette IoU of the raster capped at ``cap`` faces a tile against
+    the exact raster, on the model's rest pose seen by the default camera."""
+    with torch.no_grad():
+        out = smil_forward(spec, torch.zeros((1, spec.n_betas), device=spec.device),
+                           torch.zeros((1, spec.n_joints, 3), device=spec.device))
+        cam = default_camera(device=spec.device)
+        pv = cam.world_to_view(out.verts[0])
+        ndc = cam.view_to_ndc(pv)
+        v = torch.cat([ndc[:, :2], pv[:, 2:3]], dim=1)
+        exact = soft_silhouette(v, spec.faces, (size, size), znear=1e-3)
+        capped = soft_silhouette(v, spec.faces, (size, size), znear=1e-3, approx_max_faces=cap)
+    return round(silhouette_iou(capped, exact), 4)
+
+
+def raster_active_subgroups(spec, params: FitParams, image_size, approx_max_faces=None) -> int:
+    """The raster's work bound at ``params``: the 8-face subgroups the exact
+    raster's cull admits summed over (frame, tile), or with a cap the summed
+    work-list lengths; counted as the JAX bench counts them (rest betas
+    broadcast, no limb scales, the default camera, znear 0)."""
+    H, W = image_size
+    N = params.global_rot.shape[0]
+    with torch.no_grad():
+        theta = torch.cat([params.global_rot[:, None, :], params.joint_rot], dim=1)
+        out = smil_forward(spec, params.betas.expand(N, spec.n_betas), theta)
+        cam = default_camera(device=spec.device)
+        pv = cam.world_to_view(out.verts + params.trans[:, None, :])
+        ndc = cam.view_to_ndc(pv)
+        tri = torch.cat([ndc[..., :2], pv[..., 2:3]], dim=-1)[:, spec.faces.long()]
+        valid = torch.any(tri[..., 2] > 0.0, dim=-1)
+        if approx_max_faces is not None:
+            k_sub = max(1, -(-approx_max_faces // R.FACE_GROUP))
+            _, count = RW._tile_worklists(tri[..., :2], tri[..., 2], valid, H, W, 1e-4, k_sub)
+            return int(count.sum())
+        mask = R._tile_cull_mask(tri[..., :2], valid, H, W, 1e-4)
+        bits = (mask[:, None] >> torch.arange(32, device=mask.device)) & 1
+        return int(bits.sum())
+
+
+def _kernel_counts():
+    wrappers = {"exact_fwd": R.exact_fwd, "exact_bwd": R.exact_bwd,
+                "worklist_fwd": RW.worklist_fwd, "worklist_bwd": RW.worklist_bwd}
+    return {name: (fn.launches, fn.frames) for name, fn in wrappers.items()}
+
+
+def bench_fitter_step(spec, n_frames=1, approx_max_faces=None, fp32_peak_gflops=None,
+                      size=512, repeats=3, target_s=1.0):
+    """The bench's fitter step (``smilify_tpu_torch.bench``) on ``n_frames``
+    frames at ``size``²: single-dispatch and chained-10 rates, the raster's
+    work bound at a mid-fit pose, its FP32 rate over the step and, given the
+    card's peak, its share of that peak. Also which raster kernels the timed
+    steps launched, and how many frames each launch took."""
+    H = W = size
+    N = n_frames
+    data = synthetic_fit_data(spec, N, (H, W))
+    weights = OPT_WEIGHTS[1]
+    before = _kernel_counts()
+    single, chain = time_modes(spec, data, weights, (H, W), approx_max_faces, repeats, target_s)
+    dt, dt_chained = 1 / single, 1 / chain
+    after = _kernel_counts()
+    launches = {k: after[k][0] - before[k][0] for k in after}
+    frames = {k: after[k][1] - before[k][1] for k in after}
+
+    # a mid-fit pose (the regime the timing windows covered) for the work bound
+    params, step = fit_step(spec, data, weights, (H, W), approx_max_faces)
+    for _ in range(25):
+        step()
+    groups = raster_active_subgroups(spec, params, (H, W), approx_max_faces)
+    tests = groups * R.FACE_GROUP * R.TILE_PIX
+    ops = tests * (FWD_OPS_PER_PAIR + BWD_OPS_PER_PAIR)
+    out = {"step_ms": dt * 1000, "iters_per_sec": 1 / dt,
+           "frame_iters_per_sec": N / dt, "frames": N,
+           "chained10_step_ms": dt_chained * 1000,
+           "chained10_iters_per_sec": 1 / dt_chained,
+           "chained10_frame_iters_per_sec": N / dt_chained,
+           "image": f"{H}x{W}", "faces": int(spec.n_faces),
+           "raster_mode": ("exact" if approx_max_faces is None
+                           else f"worklist_top{approx_max_faces}"),
+           # every bbox-overlapping subgroup counted as fully evaluated: the
+           # saturation early-out skips a share of these at run time
+           "raster_point_triangle_tests_bound": int(tests),
+           "raster_ops_per_pair": FWD_OPS_PER_PAIR + BWD_OPS_PER_PAIR,
+           "raster_work_bound_gflops": ops / dt / 1e9,
+           "roofline_note": "the raster is FP32 elementwise work (no tensor cores). "
+                            "work_bound_gflops counts every bbox-overlapping subgroup "
+                            f"as fully evaluated, forward and backward ({FWD_OPS_PER_PAIR} + "
+                            f"{BWD_OPS_PER_PAIR} FP32 operations a (pixel, face) pair), "
+                            "over the single-dispatch step time: an upper bound on the "
+                            "raster's achieved rate",
+           "kernel_launches": launches,
+           "kernel_frames_per_launch": {k: frames[k] / n for k, n in launches.items() if n}}
+    if fp32_peak_gflops:
+        out["fp32_fma_peak_gflops_measured"] = fp32_peak_gflops
+        out["fp32_peak_gflops_published"] = PUBLISHED_FP32_PEAK_GFLOPS
+        out["raster_work_bound_over_peak_pct"] = 100 * (ops / dt / 1e9) / fp32_peak_gflops
+    return out
+
+
+def run(spec, only=None, size=512, repeats=3, target_s=1.0) -> dict:
+    """The configs whose key contains any string of ``only`` (all when None)."""
+    def wanted(key):
+        return only is None or any(s in key for s in only)
+
+    report = {}
+    if wanted(CONFIGS[0]):
+        report[CONFIGS[0]] = bench_forward(spec, repeats, target_s)
+    fitter_configs = [k for k in FITTER_CONFIGS if wanted(k)]
+    peak = None
+    if fitter_configs and spec.device.type == "cuda":
+        peak = measure_fp32_fma_peak_gflops(spec.device, repeats, target_s)
+        report["fp32_fma_peak_gflops_measured"] = peak
+    for key in fitter_configs:
+        frames, cap = FITTER_CONFIGS[key]
+        report[key] = bench_fitter_step(spec, frames, cap, peak, size, repeats, target_s)
+        if cap is not None:
+            report[key]["iou_vs_exact"] = measure_worklist_iou(spec, cap, size)
+    return report
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="the fitter configs of tools/bench_all.py")
+    ap.add_argument("--only", nargs="*", default=None,
+                    help="run only configs whose key contains any of these substrings; "
+                         "results merge into the existing --out file")
+    ap.add_argument("--model", default=None, help="model pickle (default: the STICK-width toy spec)")
+    ap.add_argument("--out", type=Path, default=OUT)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    dev = resolve_device(args.device)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    spec, name = load_spec(args.model, dev)
+    report = {"device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else str(dev),
+              "card": card_line() if dev.type == "cuda" else None,
+              "model": name, "timestamp": time.strftime("%Y-%m-%d %H:%M:%S")}
+    report.update(run(spec, args.only))
+    if args.only is not None and args.out.exists():
+        report = {**json.loads(args.out.read_text()), **report}
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    args.out.write_text(json.dumps(report, indent=2))
+    print(json.dumps(report), flush=True)
+
+
+if __name__ == "__main__":
+    main()

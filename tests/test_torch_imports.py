@@ -53,26 +53,45 @@ def test_scan_sees_a_forbidden_import(tmp_path):
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
+    from smilify_tpu_torch import bench
     from smilify_tpu_torch.core.spec import toy_model_spec
     from smilify_tpu_torch.fitter.fitter import FitData, SmalFitter, params_from_numpy
+    from smilify_tpu_torch.fitter.fitter_batch import BatchedFitter
+    from smilify_tpu_torch.fitter.progressive import ProgressiveFitter
     from smilify_tpu_torch.render.cameras import default_camera
     from smilify_tpu_torch.render.rasterizer import auto_approx_max_faces
+    from smilify_tpu_torch.tools import bench_all, bench_corpus, bench_progressive
 
     spec = toy_model_spec(device="cpu")
     data = FitData(rgb=None, sil=torch.zeros((1, 32, 32)), joints=torch.zeros((1, 6, 2)),
                    visibility=torch.ones((1, 6)))
+    clips = FitData(rgb=None, sil=torch.zeros((2, 1, 32, 32)), joints=torch.zeros((2, 1, 6, 2)),
+                    visibility=torch.ones((2, 1, 6)))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     calls = [
         lambda: toy_model_spec(),
         lambda: default_camera(),
         lambda: SmalFitter(spec, data, (32, 32)),
+        lambda: BatchedFitter(spec, clips, (32, 32)),
+        lambda: ProgressiveFitter(spec, data, (32, 32), scales=(1, 2)),
         lambda: auto_approx_max_faces((512, 512)),
         lambda: params_from_numpy({k: np.zeros(1) for k in
                                    ("global_rot", "joint_rot", "betas", "trans", "fov",
                                     "log_beta_scales", "joint_trans")}),
+        lambda: bench.load_spec(),
+        lambda: bench.main([]),
+        lambda: bench_all.main([]),
+        lambda: bench_all.measure_fp32_fma_peak_gflops(),
+        lambda: bench_corpus.main([]),
+        lambda: bench_progressive.main([]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
     # asked for the CPU, the same entry points run there
     assert SmalFitter(spec, data, (32, 32), device="cpu").device.type == "cpu"
+    assert BatchedFitter(spec, clips, (32, 32), device="cpu").n_seqs == 2
+    assert ProgressiveFitter(spec, data, (32, 32), device="cpu").fitter.device.type == "cpu"
+    # the FP32 peak is the card's: no CPU stand-in
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        bench_all.measure_fp32_fma_peak_gflops(device="cpu")
