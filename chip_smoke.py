@@ -32,6 +32,13 @@ read once, outputs written once) over 3.35 TB/s and its FP32 operations over
 the kernels themselves, after the cull and the saturation early-out) times
 the FP32 operations per pair (``render/_kernels.py``, counted from
 ``csrc/raster.cuh``); K5's = 32 streams × 2 × 128 rounds an element.
+
+The backward kernels K2 and K4 run many blocks a tile and add their counts
+of evaluated subgroups to ``work``: the count is held, tile by tile, to the
+one their plain versions imply, and the blocks launched and the blocks that
+found work (both derived from the inputs by the kernels' exit rule) are
+logged. Their records add ``ms_10_frames`` and ``bound_ms_10_frames`` (10
+frames at 512²).
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ import sys
 import time
 from collections import Counter
 from pathlib import Path
+from types import SimpleNamespace
 
 import torch
 
@@ -74,6 +82,9 @@ PEAK_RATE_RANGE = (0.50, 1.05)   # K5's rate as a share of PEAK_FP32_PER_S
 # five repeats), every other field within 1e-5; atol is that worst
 # difference with about 3.5× headroom.
 BATCH_RTOL, BATCH_ATOL = 2e-4, 5e-4
+RASTER_CU = ROOT / "smilify_tpu_torch" / "csrc" / "raster.cu"
+# the backward kernels' launch shape: constants of csrc/raster.cu
+BWD_SHAPE = ("kBwdThreads", "kK2Slice", "kK4Span")
 
 
 def log(msg):
@@ -131,51 +142,95 @@ def scene(spec, n_frames, dev):
     return tri[..., :2].contiguous(), tri[..., 2].contiguous(), valid
 
 
-def kernel_phase(spec, n_frames, size, dev, timed):
+def raster_inputs(spec, n_frames, size, dev):
+    """The raster kernels' inputs for ``n_frames`` posed frames at ``size``:
+    packed faces and cull words (exact), flat faces and work lists capped as
+    the fitting CLIs cap them (work list), and gS, the cotangent of the
+    fitter's silhouette term at stage 2 (w_reproj 1000, mean over H·W
+    pixels, through alpha = 1 − e^−S) with random signs. S comes from K1."""
+    from smilify_tpu_torch.render import rasterizer as R
+    from smilify_tpu_torch.render import rasterizer_worklist as RW
+
+    H, W = size
+    k_sub = math.ceil(R.auto_approx_max_faces(size, device=dev) / R.FACE_GROUP)
+    tri, z, valid = scene(spec, n_frames, dev)
+    face, mask = R._pack_faces(tri, valid), R._tile_cull_mask(tri, valid, H, W, SIGMA)
+    idx, cnt = RW._tile_worklists(tri, z, valid, H, W, SIGMA, k_sub)
+    S0 = R.exact_fwd(face, mask, H, W, SIGMA)
+    u = torch.rand(S0.shape, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    gS = (torch.exp(-S0) * (2 * u - 1) * (1000.0 / (H * W))).contiguous()
+    return SimpleNamespace(H=H, W=W, N=n_frames, T=R._tile_grid(H, W)[2], C=face.shape[1],
+                           k_sub=k_sub, face=face, mask=mask, flat=RW._pack_faces_flat(tri, valid),
+                           idx=idx, cnt=cnt, gS=gS)
+
+
+def plain_work(kind, x):
+    """(N·T,) int32: the 8-face subgroups the plain version of K2 (``kind``
+    "exact": its cull bits) or K4 ("worklist": its list entries) evaluates in
+    each (frame, tile); 0 where the tile's |gS| never exceeds GRAD_SKIP."""
+    from smilify_tpu_torch.render import rasterizer as R
+
+    on = x.gS.abs().amax(dim=-1) > R.GRAD_SKIP
+    n = R._mask_bits(x.mask, x.N, x.T, x.C).sum(dim=(-1, -2)) if kind == "exact" else x.cnt
+    return torch.where(on, n, 0).reshape(-1).to(torch.int32)
+
+
+def bwd_shape(source):
+    """{name: value} of the BWD_SHAPE constants in the CUDA source text."""
+    return {k: int(re.search(rf"constexpr int {k} = (\d+);", source).group(1)) for k in BWD_SHAPE}
+
+
+def bwd_blocks(kind, x, shape):
+    """(blocks launched, blocks that find work) of one K2 or K4 launch at
+    the launch shape ``shape`` (:func:`bwd_shape`), derived from the inputs
+    by the kernels' exit rule: a block finds work when its slice holds a
+    cull bit or a list entry and its tile's |gS| exceeds GRAD_SKIP somewhere."""
+    from smilify_tpu_torch.render import rasterizer as R
+
+    on = x.gS.abs().amax(dim=-1) > R.GRAD_SKIP
+    if kind == "exact":
+        bits = R._mask_bits(x.mask, x.N, x.T, x.C).reshape(x.N, x.T, -1, shape["kK2Slice"])
+        live = bits.any(dim=-1)
+    else:
+        live = x.cnt[..., None] > torch.arange(0, x.k_sub, shape["kK4Span"], device=x.cnt.device)
+    return live.numel(), int((live & on[..., None]).sum())
+
+
+def kernel_phase(spec, n_frames, size, dev, timed=()):
     """K1-K4 against their plain versions on the card at one shape that the
     driven paths launch (``n_frames`` frames at ``size``², the work lists
-    capped as the fitting CLIs cap them there); returns one record per
-    kernel."""
+    capped as the fitting CLIs cap them there); K2's and K4's ``work``
+    counts against the subgroups their plain versions evaluate. Times the
+    kernels named in ``timed``; returns one record per kernel."""
     from smilify_tpu_torch.render import rasterizer as R
     from smilify_tpu_torch.render import rasterizer_worklist as RW
     from smilify_tpu_torch.render._kernels import BWD_OPS_PER_PAIR, FWD_OPS_PER_PAIR
 
-    H, W = size
-    N = n_frames
-    T = R._tile_grid(H, W)[2]
-    k_sub = math.ceil(R.auto_approx_max_faces(size, device=dev) / R.FACE_GROUP)
-    tri, z, valid = scene(spec, N, dev)
-    face, mask = R._pack_faces(tri, valid), R._tile_cull_mask(tri, valid, H, W, SIGMA)
-    flat = RW._pack_faces_flat(tri, valid)
-    idx, cnt = RW._tile_worklists(tri, z, valid, H, W, SIGMA, k_sub)
-    work = torch.zeros(N * T, dtype=torch.int32, device=dev)
-
-    # the cotangent of the fitter's silhouette term at stage 2 (w_reproj 1000,
-    # mean over H·W pixels, through alpha = 1 − e^−S), with random signs
-    S0 = R.exact_fwd(face, mask, H, W, SIGMA)
-    u = torch.rand(S0.shape, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
-    gS = (torch.exp(-S0) * (2 * u - 1) * (1000.0 / (H * W))).contiguous()
-
+    x = raster_inputs(spec, n_frames, size, dev)
+    H, W, N = x.H, x.W, x.N
+    face, mask, flat, idx, cnt, gS = x.face, x.mask, x.flat, x.idx, x.cnt, x.gS
+    work = torch.zeros(N * x.T, dtype=torch.int32, device=dev)
     cases = [
         ("exact_fwd", R.exact_fwd, R.exact_fwd_plain, (face, mask, H, W, SIGMA),
-         "smilify_tpu/render/rasterizer.py:162", FWD_OPS_PER_PAIR, (face, mask), True),
+         "smilify_tpu/render/rasterizer.py:162", FWD_OPS_PER_PAIR, (face, mask), None),
         ("exact_bwd", R.exact_bwd, R.exact_bwd_plain, (face, mask, gS, H, W, SIGMA),
-         "smilify_tpu/render/rasterizer.py:267", BWD_OPS_PER_PAIR, (face, mask, gS), False),
+         "smilify_tpu/render/rasterizer.py:267", BWD_OPS_PER_PAIR, (face, mask, gS), "exact"),
         ("worklist_fwd", RW.worklist_fwd, RW.worklist_fwd_plain, (flat, idx, cnt, H, W, SIGMA),
-         "smilify_tpu/render/rasterizer_worklist.py:226", FWD_OPS_PER_PAIR, (flat, idx, cnt), True),
+         "smilify_tpu/render/rasterizer_worklist.py:226", FWD_OPS_PER_PAIR, (flat, idx, cnt), None),
         ("worklist_bwd", RW.worklist_bwd, RW.worklist_bwd_plain,
          (flat, idx, cnt, gS, H, W, SIGMA),
          "smilify_tpu/render/rasterizer_worklist.py:252", BWD_OPS_PER_PAIR, (flat, idx, cnt, gS),
-         False),
+         "worklist"),
     ]
     records = []
-    for name, kernel, plain, args, replaces, ops_per_pair, inputs, is_fwd in cases:
+    for name, kernel, plain, args, replaces, ops_per_pair, inputs, bwd in cases:
+        work.zero_()    # the backward kernels add to it, block by block
         out = kernel(*args, work=work)
         ref = plain(*args)
         torch.cuda.synchronize()
         at = f"N={N}, {H}x{W}"
         check(bool(torch.isfinite(out).all()), f"{name}: non-finite output ({at})")
-        if is_fwd:
+        if bwd is None:
             err = float((torch.exp(-ref) - torch.exp(-out)).abs().max())
             ok = err <= ALPHA_ATOL
             check(float(out.max()) > 1.0, f"{name}: the mesh covers no pixel ({at})")
@@ -187,14 +242,23 @@ def kernel_phase(spec, n_frames, size, dev, timed):
         pairs = int(work.sum()) * R.FACE_GROUP * R.TILE_PIX
         rec = {"name": name, "route": "cuda", "source": "smilify_tpu_torch/csrc/raster.cu",
                "replaces": replaces, "launches": None, "max_abs_err": err}
-        if timed:
+        line = f"  {at} {name}: max abs err {err:.3g}, pairs {pairs}"
+        if bwd is not None:
+            expect = plain_work(bwd, x)
+            bad = int((work != expect).sum())
+            check(bad == 0, f"{name}: the subgroups counted differ from the plain version's in "
+                            f"{bad} tiles ({at}; {int(work.sum())} against {int(expect.sum())})")
+            launched, busy = bwd_blocks(bwd, x, bwd_shape(RASTER_CU.read_text()))
+            line += (f", subgroups as the plain version's; {launched} blocks, {busy} with "
+                     f"work by the exit rule")
+        if name in timed:
             rec["ms"] = cuda_ms(lambda: kernel(*args), reps=20)
             rec["plain_ms"] = cuda_ms(lambda: plain(*args), reps=2, warmup=1)
             b_ms, b_by = bound(nbytes(*inputs, out), pairs * ops_per_pair)
             rec.update(bound_ms=b_ms, bound_by=b_by, library_ms=None)
-        log(f"  {at} {name}: max abs err {err:.3g}, pairs {pairs}"
-            + (f", {rec['ms']:.4f} ms (plain {rec['plain_ms']:.2f} ms, bound "
-               f"{rec['bound_ms']:.4f} ms by {rec['bound_by']})" if timed else ""))
+            line += (f", {rec['ms']:.4f} ms (plain {rec['plain_ms']:.2f} ms, bound "
+                     f"{rec['bound_ms']:.4f} ms by {rec['bound_by']})")
+        log(line)
         records.append(rec)
     return records
 
@@ -526,12 +590,16 @@ def main():
     log(f"  spec: {spec_name}, B={spec.n_betas}")
 
     log("[2/7] kernels against their plain versions at the driven paths' shapes")
-    records = kernel_phase(spec, 1, SIZE, dev, timed=True)
+    records = kernel_phase(spec, 1, SIZE, dev,
+                           timed=("exact_fwd", "exact_bwd", "worklist_fwd", "worklist_bwd"))
     # frames a launch × image: the fitter's profile and bench_all's N=10
-    # configs; bench_corpus (8 clips at 256²); the batched fitter and the
-    # progressive fit's coarse scales (128²)
+    # configs (K2 and K4 timed there too); bench_corpus (8 clips at 256²);
+    # the batched fitter and the progressive fit's coarse scales (128²)
     for n_frames, size in ((4, SIZE), (10, SIZE), (8, (256, 256)), (4, (128, 128))):
-        kernel_phase(spec, n_frames, size, dev, timed=False)
+        timed = ("exact_bwd", "worklist_bwd") if n_frames == 10 else ()
+        for rec, at_n in zip(records, kernel_phase(spec, n_frames, size, dev, timed)):
+            if "ms" in at_n:
+                rec.update(ms_10_frames=at_n["ms"], bound_ms_10_frames=at_n["bound_ms"])
     records.append(peak_phase(dev))
     log("[3/7] main path: SmalFitter, 4 stages × 10 steps, 1 frame at 512²")
     data = synthetic_fit_data(spec, 1, SIZE)

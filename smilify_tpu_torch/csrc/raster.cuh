@@ -18,9 +18,8 @@ namespace smil {
 constexpr int kTileW = 32;
 constexpr int kTileH = 32;
 constexpr int kTilePix = kTileW * kTileH;            // pixels per tile
-constexpr int kThreads = 256;                        // threads per block (one tile)
+constexpr int kThreads = 256;                        // threads per forward block (one tile)
 constexpr int kPixPerThread = kTilePix / kThreads;   // forward: pixels held per thread
-constexpr int kWarps = kThreads / 32;
 constexpr int kFaceGroup = 8;                        // faces per cull subgroup
 constexpr int kFaceChunk = 512;                      // faces per packed chunk
 constexpr int kGroupsPerChunk = kFaceChunk / kFaceGroup;
@@ -109,28 +108,29 @@ __device__ __forceinline__ float fwd_term(float px, float py, const float (&f)[k
 // Adds dS/d(ax, ay, bx, by, cx, cy) of one (pixel, face) pair, weighted by
 // the incoming G = dL/dS(pixel), to g. dS/dd = −sigmoid(−d/σ)/σ·sign goes to
 // the argmin edge; the edge's squared distance has the envelope gradient
-// ∂/∂u = −2(1−t)·r, ∂/∂v = −2t·r at its optimal t.
+// ∂/∂u = −2(1−t)·r, ∂/∂v = −2t·r at its optimal t. Branch-free: the argmin
+// edge's (t, r) and each vertex's weight are selects, so lanes of a warp
+// that pick different edges never run apart; a vertex off the edge adds
+// 0·r, which leaves its sum as it was.
 __device__ __forceinline__ void bwd_term(float px, float py, float G, const float (&f)[kStaged],
                                          float inv_sigma, float (&g)[6]) {
   const Dist s = signed_distance(px, py, f);
   const float sig = 1.0f / (1.0f + expf(s.d * inv_sigma));   // sigmoid(−d/σ)
   const float wgt = G * f[15] * sig * (-inv_sigma) * s.sign;
   const float m2 = wgt * -2.0f;
-  const bool e1 = s.e1.d <= s.e2.d && s.e1.d <= s.e3.d;
-  const bool e2 = !e1 && s.e2.d <= s.e3.d;
-  if (e1) {         // edge a → b
-    const float u = m2 * (1.0f - s.e1.t), v = m2 * s.e1.t;
-    g[0] += u * s.e1.rx; g[1] += u * s.e1.ry;
-    g[2] += v * s.e1.rx; g[3] += v * s.e1.ry;
-  } else if (e2) {  // edge b → c
-    const float u = m2 * (1.0f - s.e2.t), v = m2 * s.e2.t;
-    g[2] += u * s.e2.rx; g[3] += u * s.e2.ry;
-    g[4] += v * s.e2.rx; g[5] += v * s.e2.ry;
-  } else {          // edge c → a
-    const float u = m2 * (1.0f - s.e3.t), v = m2 * s.e3.t;
-    g[4] += u * s.e3.rx; g[5] += u * s.e3.ry;
-    g[0] += v * s.e3.rx; g[1] += v * s.e3.ry;
-  }
+  const bool e1 = s.e1.d <= s.e2.d && s.e1.d <= s.e3.d;    // edge a → b
+  const bool e2 = !e1 && s.e2.d <= s.e3.d;                 // edge b → c
+  const bool e3 = !e1 && !e2;                              // edge c → a
+  const float t = e1 ? s.e1.t : (e2 ? s.e2.t : s.e3.t);
+  const float rx = e1 ? s.e1.rx : (e2 ? s.e2.rx : s.e3.rx);
+  const float ry = e1 ? s.e1.ry : (e2 ? s.e2.ry : s.e3.ry);
+  const float u = m2 * (1.0f - t), v = m2 * t;             // the edge's start, end
+  const float wa = e1 ? u : (e3 ? v : 0.0f);
+  const float wb = e2 ? u : (e1 ? v : 0.0f);
+  const float wc = e3 ? u : (e2 ? v : 0.0f);
+  g[0] += wa * rx; g[1] += wa * ry;
+  g[2] += wb * rx; g[3] += wb * ry;
+  g[4] += wc * rx; g[5] += wc * ry;
 }
 
 // NDC coordinates of pixel centres (PyTorch3D convention: +X left, +Y up,

@@ -340,7 +340,10 @@ def exact_bwd_plain(face_data, mask, gS_tiles, H, W, sigma):
 
 def exact_bwd(face_data, mask, gS_tiles, H, W, sigma, work=None):
     """dS/d(face rows) of the exact raster: the CUDA kernel
-    ``exact_bwd_kernel`` for CUDA tensors, the plain version for CPU ones."""
+    ``exact_bwd_kernel`` for CUDA tensors, the plain version for CPU ones.
+    ``work`` (CUDA only, optional, int32 (N·T,)) must come zeroed: the
+    kernel's blocks add the 8-face subgroups they evaluate to their tile's
+    entry."""
     if face_data.device.type == "cpu":
         return exact_bwd_plain(face_data, mask, gS_tiles, H, W, sigma)
     N, C = face_data.shape[0], face_data.shape[1]

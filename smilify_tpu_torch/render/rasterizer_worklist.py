@@ -164,7 +164,8 @@ def worklist_bwd_plain(face_flat, idx, count, gS_tiles, H, W, sigma):
 
 def worklist_bwd(face_flat, idx, count, gS_tiles, H, W, sigma, work=None):
     """dS/d(face rows) of the work-list raster: the CUDA kernel
-    ``worklist_bwd_kernel`` for CUDA tensors, the plain version for CPU ones."""
+    ``worklist_bwd_kernel`` for CUDA tensors, the plain version for CPU ones.
+    ``work`` as for ``rasterizer.exact_bwd``: zeroed by the caller."""
     if face_flat.device.type == "cpu":
         return worklist_bwd_plain(face_flat, idx, count, gS_tiles, H, W, sigma)
     N, F8 = face_flat.shape[0], face_flat.shape[1]

@@ -73,8 +73,11 @@ def timeit_chain(step, state, n1=8, n2=32, warmup=2, repeats=3, target_s=1.0):
     scale = max(1, min(64, round(target_s / (per_est * (n2 - n1)))))
     n1, n2 = n1 * scale, n2 * scale
 
-    slopes = []
-    for _ in range(repeats):
+    # a pair whose slope is not positive (a host stall in its short window
+    # longer than the gap) measured nothing: it is measured again, up to 3
+    # times in all
+    slopes, redo = [], 3
+    while len(slopes) < repeats:
         times = []
         for n in (n1, n2):
             s = state
@@ -83,6 +86,10 @@ def timeit_chain(step, state, n1=8, n2=32, warmup=2, repeats=3, target_s=1.0):
                 s = step(s)
             sync(s)
             times.append(time.perf_counter() - t0)
-        slopes.append((times[1] - times[0]) / (n2 - n1))
+        slope = (times[1] - times[0]) / (n2 - n1)
+        if slope <= 0 and redo > 0:
+            redo -= 1
+            continue
+        slopes.append(slope)
     slopes.sort()
     return slopes[len(slopes) // 2]

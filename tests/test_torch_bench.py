@@ -97,6 +97,22 @@ def test_timeit_chain_windows_and_slope():
     assert len(calls) > 1 + 2 + 2 * (2 + 6)        # the probe scaled the windows up
 
 
+def test_timeit_chain_redoes_a_stalled_pair():
+    """A stall in a pair's short window makes its slope negative: that pair
+    is measured again, and no negative time comes back."""
+    calls = []
+
+    def step(state):
+        calls.append(None)
+        time.sleep(0.2 if len(calls) == 4 else 0.002)   # the first pair's short window
+        return state + 1
+
+    dt = _timing.timeit_chain(step, torch.zeros(3), n1=2, n2=6, warmup=1, repeats=1,
+                              target_s=0.0)
+    assert len(calls) == 1 + 2 + 2 * (2 + 6)       # warmup, probe, the stalled pair, its redo
+    assert 0.0015 < dt < 0.05
+
+
 def test_sync_finds_the_first_tensor():
     params = tfit.params_from_numpy({k: np.ones(2) for k in tfit.FitParams.fields()}, device="cpu")
     for state in (params, {"a": 1, "b": params}, (None, [torch.ones(1)]), torch.ones(2)):

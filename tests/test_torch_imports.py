@@ -1,8 +1,9 @@
 """Rules of the PyTorch port that hold without a card.
 
-* No module of ``smilify_tpu_torch`` and not ``chip_smoke.py`` imports JAX,
-  Flax, Optax or anything of the JAX package ``smilify_tpu`` (importing any
-  of its modules runs its ``__init__``, which imports JAX).
+* No module of ``smilify_tpu_torch``, no script of ``scripts/`` and not
+  ``chip_smoke.py`` imports JAX, Flax, Optax or anything of the JAX package
+  ``smilify_tpu`` (importing any of its modules runs its ``__init__``,
+  which imports JAX).
 * An entry point given no device runs on ``cuda`` or raises; it never falls
   back to the CPU on its own.
 """
@@ -19,7 +20,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "smilify_tpu")
 
 
 def _port_files():
-    files = sorted((REPO / "smilify_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = (sorted((REPO / "smilify_tpu_torch").rglob("*.py"))
+             + sorted((REPO / "scripts").glob("*.py")) + [REPO / "chip_smoke.py"])
     return [f for f in files if f.exists()]
 
 

@@ -162,15 +162,32 @@ def test_worklist_lists_match_jax_order():
     np.testing.assert_array_equal(idx_t.numpy()[live], idx_j[live])
 
 
-def test_plain_worklist_uncapped_equals_plain_exact():
-    """Uncapped, both plain versions do the same work: the same S."""
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+def test_plain_worklist_uncapped_equals_plain_exact(direction):
+    """Uncapped, both plain versions do the same work: the same S, and the
+    same face gradients. F = 600 spans two cull chunks and k_sub = 75 more
+    than one 64-entry batch, so the sums cross the chunk and list boundaries
+    where the backward kernels cut a tile's work over blocks."""
     tri, valid, z = _scene(5, 2, 600, spread=0.9, size=0.1)
     t, v = torch.from_numpy(tri), torch.from_numpy(valid)
     H, W = 32, 64
-    S_e = R.exact_fwd_plain(R._pack_faces(t, v), R._tile_cull_mask(t, v, H, W, SIGMA), H, W, SIGMA)
+    face, mask = R._pack_faces(t, v), R._tile_cull_mask(t, v, H, W, SIGMA)
+    flat = RW._pack_faces_flat(t, v)
     idx, cnt = RW._tile_worklists(t, torch.from_numpy(z), v, H, W, SIGMA, 75)
-    S_w = RW.worklist_fwd_plain(RW._pack_faces_flat(t, v), idx, cnt, H, W, SIGMA)
-    np.testing.assert_allclose(_alpha(S_w.numpy()), _alpha(S_e.numpy()), atol=1e-6)
+    assert face.shape[1] == 2 and int(cnt.max()) > R.GROUPS_PER_CHUNK, int(cnt.max())
+    if direction == "fwd":
+        S_e = R.exact_fwd_plain(face, mask, H, W, SIGMA)
+        S_w = RW.worklist_fwd_plain(flat, idx, cnt, H, W, SIGMA)
+        np.testing.assert_allclose(_alpha(S_w.numpy()), _alpha(S_e.numpy()), atol=1e-6)
+        return
+    T = R._tile_grid(H, W)[2]
+    # the silhouette term's cotangent scale (w_reproj 1000 over H·W pixels)
+    gS = np.random.RandomState(6).standard_normal((2, T, R.TILE_PIX)) * (1000.0 / (H * W))
+    gS = torch.from_numpy(gS.astype(np.float32))
+    d_e = R.exact_bwd_plain(face, mask, gS, H, W, SIGMA).reshape(2, -1, 8)[:, :600]
+    d_w = RW.worklist_bwd_plain(flat, idx, cnt, gS, H, W, SIGMA)
+    assert float(d_e.abs().max()) > 0
+    np.testing.assert_allclose(d_w.numpy(), d_e.numpy(), atol=1e-5, rtol=1e-5)
 
 
 def test_approx_cap_rejects_reference_raster():
