@@ -33,12 +33,16 @@ the kernels themselves, after the cull and the saturation early-out) times
 the FP32 operations per pair (``render/_kernels.py``, counted from
 ``csrc/raster.cuh``); K5's = 32 streams × 2 × 128 rounds an element.
 
-The backward kernels K2 and K4 run many blocks a tile and add their counts
-of evaluated subgroups to ``work``: the count is held, tile by tile, to the
-one their plain versions imply, and the blocks launched and the blocks that
-found work (both derived from the inputs by the kernels' exit rule) are
-logged. Their records add ``ms_10_frames`` and ``bound_ms_10_frames`` (10
-frames at 512²).
+Every raster kernel's count of evaluated 8-face subgroups (``work``) is
+held, tile by tile, to the one its plain version computes. The forward
+kernels K1 and K3 run one thread-block cluster a tile and write the count
+once a tile, after the saturation early-out; phase 2 also runs them on a
+saturating scene (6,000 large overlapping triangles made from a seed), logs
+how many tiles stopped early and fails if none did. The backward kernels K2
+and K4 run many blocks a tile and add their counts to ``work``; the blocks
+launched and the blocks that found work (both derived from the inputs by
+the kernels' exit rule) are logged. The records of K1-K4 add
+``ms_10_frames`` and ``bound_ms_10_frames`` (10 frames at 512²).
 """
 
 from __future__ import annotations
@@ -83,8 +87,14 @@ PEAK_RATE_RANGE = (0.50, 1.05)   # K5's rate as a share of PEAK_FP32_PER_S
 # difference with about 3.5× headroom.
 BATCH_RTOL, BATCH_ATOL = 2e-4, 5e-4
 RASTER_CU = ROOT / "smilify_tpu_torch" / "csrc" / "raster.cu"
-# the backward kernels' launch shape: constants of csrc/raster.cu
+# the raster kernels' launch shapes: constants of csrc/raster.cu
+FWD_SHAPE = ("kFwdCluster", "kFwdLanes", "kFwdThreads")
 BWD_SHAPE = ("kBwdThreads", "kK2Slice", "kK4Span")
+# the saturating scene: large triangles (circumradius 0.3-0.45 in NDC)
+# centred in the middle of the image, so the tiles deep inside the covered
+# region reach S ≥ 20 within the first batch and the tiles at its rim never do
+SAT_FACES = 6000
+SAT_SEED = 4
 
 
 def log(msg):
@@ -142,18 +152,38 @@ def scene(spec, n_frames, dev):
     return tri[..., :2].contiguous(), tri[..., 2].contiguous(), valid
 
 
-def raster_inputs(spec, n_frames, size, dev):
-    """The raster kernels' inputs for ``n_frames`` posed frames at ``size``:
-    packed faces and cull words (exact), flat faces and work lists capped as
-    the fitting CLIs cap them (work list), and gS, the cotangent of the
-    fitter's silhouette term at stage 2 (w_reproj 1000, mean over H·W
-    pixels, through alpha = 1 − e^−S) with random signs. S comes from K1."""
+def saturating_scene(n_frames, dev):
+    """SAT_FACES large triangles a frame, made on the card from SAT_SEED:
+    (tri_xy (N, F, 3, 2), tri_z (N, F, 3), valid (N, F)). Centres uniform in
+    [−0.5, 0.5]², vertices at circumradius 0.3-0.45 around them, 120° ± 20°
+    apart; z in [1, 2]; 5% of the faces invalid."""
+    g = torch.Generator(device=dev).manual_seed(SAT_SEED)
+
+    def uniform(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=g, device=dev)
+
+    N, F = n_frames, SAT_FACES
+    centre = uniform(-0.5, 0.5, N, F, 1, 2)
+    turn = torch.arange(3, device=dev) * (2 * math.pi / 3)
+    angle = uniform(0, 2 * math.pi, N, F, 1) + turn + uniform(-0.35, 0.35, N, F, 3)
+    radius = uniform(0.3, 0.45, N, F, 3)
+    tri = centre + radius[..., None] * torch.stack([angle.cos(), angle.sin()], -1)
+    return tri.contiguous(), uniform(1.0, 2.0, N, F, 3), uniform(0, 1, N, F) > 0.05
+
+
+def raster_inputs(spec, n_frames, size, dev, saturating=False):
+    """The raster kernels' inputs for ``n_frames`` frames at ``size`` of the
+    posed mesh (or of :func:`saturating_scene`): packed faces and cull words
+    (exact), flat faces and work lists capped as the fitting CLIs cap them
+    (work list), and gS, the cotangent of the fitter's silhouette term at
+    stage 2 (w_reproj 1000, mean over H·W pixels, through alpha = 1 − e^−S)
+    with random signs. S comes from K1."""
     from smilify_tpu_torch.render import rasterizer as R
     from smilify_tpu_torch.render import rasterizer_worklist as RW
 
     H, W = size
     k_sub = math.ceil(R.auto_approx_max_faces(size, device=dev) / R.FACE_GROUP)
-    tri, z, valid = scene(spec, n_frames, dev)
+    tri, z, valid = saturating_scene(n_frames, dev) if saturating else scene(spec, n_frames, dev)
     face, mask = R._pack_faces(tri, valid), R._tile_cull_mask(tri, valid, H, W, SIGMA)
     idx, cnt = RW._tile_worklists(tri, z, valid, H, W, SIGMA, k_sub)
     S0 = R.exact_fwd(face, mask, H, W, SIGMA)
@@ -164,27 +194,36 @@ def raster_inputs(spec, n_frames, size, dev):
                            idx=idx, cnt=cnt, gS=gS)
 
 
-def plain_work(kind, x):
-    """(N·T,) int32: the 8-face subgroups the plain version of K2 (``kind``
-    "exact": its cull bits) or K4 ("worklist": its list entries) evaluates in
-    each (frame, tile); 0 where the tile's |gS| never exceeds GRAD_SKIP."""
+def listed_work(kind, x):
+    """(N·T,) int32: every 8-face subgroup a tile has to offer, its cull
+    bits (``kind`` "exact") or its list entries ("worklist")."""
     from smilify_tpu_torch.render import rasterizer as R
 
-    on = x.gS.abs().amax(dim=-1) > R.GRAD_SKIP
     n = R._mask_bits(x.mask, x.N, x.T, x.C).sum(dim=(-1, -2)) if kind == "exact" else x.cnt
-    return torch.where(on, n, 0).reshape(-1).to(torch.int32)
+    return n.reshape(-1).to(torch.int32)
 
 
-def bwd_shape(source):
-    """{name: value} of the BWD_SHAPE constants in the CUDA source text."""
-    return {k: int(re.search(rf"constexpr int {k} = (\d+);", source).group(1)) for k in BWD_SHAPE}
+def plain_work(kind, x):
+    """(N·T,) int32: the 8-face subgroups the plain version of K2 (``kind``
+    "exact") or K4 ("worklist") evaluates in each (frame, tile): all it has
+    to offer, or 0 where the tile's |gS| never exceeds GRAD_SKIP."""
+    from smilify_tpu_torch.render import rasterizer as R
+
+    on = x.gS.abs().amax(dim=-1).reshape(-1) > R.GRAD_SKIP
+    return torch.where(on, listed_work(kind, x), 0).to(torch.int32)
+
+
+def source_constants(source, names):
+    """{name: value} of the ``constexpr int`` constants ``names`` in CUDA source text."""
+    return {k: int(re.search(rf"constexpr int {k} = (\d+);", source).group(1)) for k in names}
 
 
 def bwd_blocks(kind, x, shape):
     """(blocks launched, blocks that find work) of one K2 or K4 launch at
-    the launch shape ``shape`` (:func:`bwd_shape`), derived from the inputs
-    by the kernels' exit rule: a block finds work when its slice holds a
-    cull bit or a list entry and its tile's |gS| exceeds GRAD_SKIP somewhere."""
+    the launch shape ``shape`` (:func:`source_constants`), derived from the
+    inputs by the kernels' exit rule: a block finds work when its slice holds
+    a cull bit or a list entry and its tile's |gS| exceeds GRAD_SKIP
+    somewhere."""
     from smilify_tpu_torch.render import rasterizer as R
 
     on = x.gS.abs().amax(dim=-1) > R.GRAD_SKIP
@@ -196,41 +235,53 @@ def bwd_blocks(kind, x, shape):
     return live.numel(), int((live & on[..., None]).sum())
 
 
-def kernel_phase(spec, n_frames, size, dev, timed=()):
+def kernel_phase(spec, n_frames, size, dev, timed=(), saturating=False):
     """K1-K4 against their plain versions on the card at one shape that the
     driven paths launch (``n_frames`` frames at ``size``², the work lists
-    capped as the fitting CLIs cap them there); K2's and K4's ``work``
-    counts against the subgroups their plain versions evaluate. Times the
-    kernels named in ``timed``; returns one record per kernel."""
+    capped as the fitting CLIs cap them there), each kernel's ``work``
+    counts against the subgroups its plain version evaluates, tile by tile.
+    ``saturating``: K1 and K3 only, on :func:`saturating_scene`, failing
+    unless some tile stopped early. Times the kernels named in ``timed``;
+    returns one record per kernel."""
     from smilify_tpu_torch.render import rasterizer as R
     from smilify_tpu_torch.render import rasterizer_worklist as RW
     from smilify_tpu_torch.render._kernels import BWD_OPS_PER_PAIR, FWD_OPS_PER_PAIR
 
-    x = raster_inputs(spec, n_frames, size, dev)
+    x = raster_inputs(spec, n_frames, size, dev, saturating)
     H, W, N = x.H, x.W, x.N
     face, mask, flat, idx, cnt, gS = x.face, x.mask, x.flat, x.idx, x.cnt, x.gS
-    work = torch.zeros(N * x.T, dtype=torch.int32, device=dev)
+    work = torch.empty(N * x.T, dtype=torch.int32, device=dev)
     cases = [
         ("exact_fwd", R.exact_fwd, R.exact_fwd_plain, (face, mask, H, W, SIGMA),
-         "smilify_tpu/render/rasterizer.py:162", FWD_OPS_PER_PAIR, (face, mask), None),
+         "smilify_tpu/render/rasterizer.py:162", FWD_OPS_PER_PAIR, (face, mask), "exact"),
         ("exact_bwd", R.exact_bwd, R.exact_bwd_plain, (face, mask, gS, H, W, SIGMA),
          "smilify_tpu/render/rasterizer.py:267", BWD_OPS_PER_PAIR, (face, mask, gS), "exact"),
         ("worklist_fwd", RW.worklist_fwd, RW.worklist_fwd_plain, (flat, idx, cnt, H, W, SIGMA),
-         "smilify_tpu/render/rasterizer_worklist.py:226", FWD_OPS_PER_PAIR, (flat, idx, cnt), None),
+         "smilify_tpu/render/rasterizer_worklist.py:226", FWD_OPS_PER_PAIR, (flat, idx, cnt),
+         "worklist"),
         ("worklist_bwd", RW.worklist_bwd, RW.worklist_bwd_plain,
          (flat, idx, cnt, gS, H, W, SIGMA),
          "smilify_tpu/render/rasterizer_worklist.py:252", BWD_OPS_PER_PAIR, (flat, idx, cnt, gS),
          "worklist"),
     ]
+    if saturating:
+        cases = [c for c in cases if c[0].endswith("_fwd")]
     records = []
-    for name, kernel, plain, args, replaces, ops_per_pair, inputs, bwd in cases:
-        work.zero_()    # the backward kernels add to it, block by block
+    for name, kernel, plain, args, replaces, ops_per_pair, inputs, kind in cases:
+        fwd = name.endswith("_fwd")
+        # the forward kernels write every tile's entry once; the backward
+        # ones add to it, block by block
+        work.fill_(-1 if fwd else 0)
         out = kernel(*args, work=work)
-        ref = plain(*args)
+        if fwd:
+            expect = torch.empty_like(work)
+            ref = plain(*args, work=expect)
+        else:
+            ref, expect = plain(*args), plain_work(kind, x)
         torch.cuda.synchronize()
-        at = f"N={N}, {H}x{W}"
+        at = f"N={N}, {H}x{W}{', saturating scene' if saturating else ''}"
         check(bool(torch.isfinite(out).all()), f"{name}: non-finite output ({at})")
-        if bwd is None:
+        if fwd:
             err = float((torch.exp(-ref) - torch.exp(-out)).abs().max())
             ok = err <= ALPHA_ATOL
             check(float(out.max()) > 1.0, f"{name}: the mesh covers no pixel ({at})")
@@ -239,18 +290,23 @@ def kernel_phase(spec, n_frames, size, dev, timed=()):
             ok = bool(torch.isclose(out, ref, atol=GRAD_ATOL, rtol=GRAD_RTOL).all())
             check(float(ref.abs().max()) > 0, f"{name}: zero gradient ({at})")
         check(ok, f"{name}: kernel disagrees with its plain version ({at}, max abs err {err})")
+        bad = int((work != expect).sum())
+        check(bad == 0, f"{name}: the subgroups counted differ from the plain version's in "
+                        f"{bad} tiles ({at}; {int(work.sum())} against {int(expect.sum())})")
         pairs = int(work.sum()) * R.FACE_GROUP * R.TILE_PIX
         rec = {"name": name, "route": "cuda", "source": "smilify_tpu_torch/csrc/raster.cu",
                "replaces": replaces, "launches": None, "max_abs_err": err}
-        line = f"  {at} {name}: max abs err {err:.3g}, pairs {pairs}"
-        if bwd is not None:
-            expect = plain_work(bwd, x)
-            bad = int((work != expect).sum())
-            check(bad == 0, f"{name}: the subgroups counted differ from the plain version's in "
-                            f"{bad} tiles ({at}; {int(work.sum())} against {int(expect.sum())})")
-            launched, busy = bwd_blocks(bwd, x, bwd_shape(RASTER_CU.read_text()))
-            line += (f", subgroups as the plain version's; {launched} blocks, {busy} with "
-                     f"work by the exit rule")
+        line = (f"  {at} {name}: max abs err {err:.3g}, pairs {pairs}, subgroups as the plain "
+                f"version's in every tile")
+        if fwd:
+            stopped = int((expect < listed_work(kind, x)).sum())
+            line += f"; {stopped} of {N * x.T} tiles stopped early"
+            if saturating:
+                check(stopped > 0, f"{name}: no tile stopped early on the saturating scene ({at})")
+        else:
+            launched, busy = bwd_blocks(kind, x, source_constants(RASTER_CU.read_text(),
+                                                                  BWD_SHAPE))
+            line += f"; {launched} blocks, {busy} with work by the exit rule"
         if name in timed:
             rec["ms"] = cuda_ms(lambda: kernel(*args), reps=20)
             rec["plain_ms"] = cuda_ms(lambda: plain(*args), reps=2, warmup=1)
@@ -590,16 +646,22 @@ def main():
     log(f"  spec: {spec_name}, B={spec.n_betas}")
 
     log("[2/7] kernels against their plain versions at the driven paths' shapes")
-    records = kernel_phase(spec, 1, SIZE, dev,
-                           timed=("exact_fwd", "exact_bwd", "worklist_fwd", "worklist_bwd"))
+    shape = source_constants(RASTER_CU.read_text(), FWD_SHAPE + BWD_SHAPE)
+    log(f"  launch shapes (csrc/raster.cu): {shape}")
+    raster = ("exact_fwd", "exact_bwd", "worklist_fwd", "worklist_bwd")
+    records = kernel_phase(spec, 1, SIZE, dev, timed=raster)
     # frames a launch × image: the fitter's profile and bench_all's N=10
-    # configs (K2 and K4 timed there too); bench_corpus (8 clips at 256²);
-    # the batched fitter and the progressive fit's coarse scales (128²)
-    for n_frames, size in ((4, SIZE), (10, SIZE), (8, (256, 256)), (4, (128, 128))):
-        timed = ("exact_bwd", "worklist_bwd") if n_frames == 10 else ()
+    # configs (every raster kernel timed there too); bench_corpus (8 clips
+    # at 256²); the batched fitter and the progressive fit's coarse scales
+    # (128²)
+    shapes = ((4, SIZE), (10, SIZE), (8, (256, 256)), (4, (128, 128)))
+    for n_frames, size in shapes:
+        timed = raster if n_frames == 10 else ()
         for rec, at_n in zip(records, kernel_phase(spec, n_frames, size, dev, timed)):
             if "ms" in at_n:
                 rec.update(ms_10_frames=at_n["ms"], bound_ms_10_frames=at_n["bound_ms"])
+    for n_frames, size in ((1, SIZE),) + shapes:
+        kernel_phase(spec, n_frames, size, dev, saturating=True)
     records.append(peak_phase(dev))
     log("[3/7] main path: SmalFitter, 4 stages × 10 steps, 1 frame at 512²")
     data = synthetic_fit_data(spec, 1, SIZE)

@@ -61,12 +61,13 @@ def shaped_source(shape):
     return src
 
 
-def build_variants(variants):
-    """Build every variant ({name: (csrc dir, raster.cu text)}), one nvcc
-    each, all at once; returns {name: loaded library with its C entries typed}."""
+def build_variants(variants, build=BUILD):
+    """Build every variant ({name: (csrc dir, raster.cu text)}) under
+    ``build``, one nvcc each, all at once; returns {name: loaded library with
+    its C entries typed}."""
     running = {}
     for name, (csrc, source) in variants.items():
-        d = BUILD / name
+        d = build / name
         d.mkdir(parents=True, exist_ok=True)
         shutil.copy(csrc / "raster.cuh", d / "raster.cuh")
         (d / "raster.cu").write_text(source)
@@ -92,12 +93,13 @@ def build_variants(variants):
     return libs
 
 
-def ptxas_lines(name):
-    """The -Xptxas -v lines of the backward kernels in a variant's build log."""
+def ptxas_lines(name, build=BUILD, kernels="_bwd_kernel"):
+    """The -Xptxas -v lines of the kernels whose names hold ``kernels`` in a
+    variant's build log."""
     lines, keep = [], False
-    for line in (BUILD / name / "nvcc.log").read_text().splitlines():
+    for line in (build / name / "nvcc.log").read_text().splitlines():
         if "Compiling entry" in line:
-            keep = "_bwd_kernel" in line
+            keep = kernels in line
         if keep and ("Compiling entry" in line or "registers" in line or "spill" in line):
             lines.append(line.strip())
     return lines

@@ -18,8 +18,6 @@ namespace smil {
 constexpr int kTileW = 32;
 constexpr int kTileH = 32;
 constexpr int kTilePix = kTileW * kTileH;            // pixels per tile
-constexpr int kThreads = 256;                        // threads per forward block (one tile)
-constexpr int kPixPerThread = kTilePix / kThreads;   // forward: pixels held per thread
 constexpr int kFaceGroup = 8;                        // faces per cull subgroup
 constexpr int kFaceChunk = 512;                      // faces per packed chunk
 constexpr int kGroupsPerChunk = kFaceChunk / kFaceGroup;

@@ -256,19 +256,24 @@ def _bwd_terms(px, py, fa, gate, G, inv_sigma):
 # ---------------------------------------------------------------------------
 
 
-def exact_fwd_plain(face_data, mask, H, W, sigma):
+def exact_fwd_plain(face_data, mask, H, W, sigma, work=None):
     """Plain version of the exact forward kernel: S tiles (N, T, TILE_PIX)
     from packed faces (N, C, FACE_CHUNK, 8) and cull words. Chunks run in
     order; a tile skips a chunk whose words are 0, or all remaining chunks
-    once its minimum S reached SATURATION_S at the start of a chunk."""
+    once its minimum S reached SATURATION_S at the start of a chunk.
+    ``work`` (optional, int32 (N·T,)) is overwritten with the number of
+    8-face subgroups each tile evaluated: the set cull bits of the chunks it
+    ran before the early-out."""
     N, C = face_data.shape[0], face_data.shape[1]
     _, _, T = _tile_grid(H, W)
     px, py = _tile_pixels(H, W, face_data.dtype, face_data.device)
     bits = _mask_bits(mask, N, T, C)
     S = torch.zeros((N, T, TILE_PIX), dtype=face_data.dtype, device=face_data.device)
+    n_work = torch.zeros((N, T), dtype=torch.int32, device=face_data.device)
     inv_sigma = 1.0 / sigma
     for c in range(C):
         live = bits[:, :, c].any(dim=-1) & (S.amin(dim=-1) < SATURATION_S)
+        n_work += torch.where(live, bits[:, :, c].sum(dim=-1, dtype=torch.int32), 0)
         for w in range(N_WORDS):
             gw = bits[:, :, c, w * GROUPS_PER_WORD:(w + 1) * GROUPS_PER_WORD]
             n_i, t_i = torch.nonzero(live & gw.any(dim=-1), as_tuple=True)
@@ -278,16 +283,20 @@ def exact_fwd_plain(face_data, mask, H, W, sigma):
             gate = gw[n_i, t_i].repeat_interleave(FACE_GROUP, dim=-1)    # (P, WORD)
             S.index_put_((n_i, t_i), _fwd_terms(px[t_i], py[t_i], fa, gate, inv_sigma),
                          accumulate=True)
+    if work is not None:
+        work.copy_(n_work.reshape(-1))
     return S
 
 
 def exact_fwd(face_data, mask, H, W, sigma, work=None):
     """S tiles (N, T, TILE_PIX) of the exact raster: the CUDA kernel
-    ``exact_fwd_kernel`` (csrc/raster.cu) for CUDA tensors, the plain version
-    for CPU tensors. ``work`` (CUDA only, optional, int32 (N·T,)) receives the
-    number of 8-face subgroups each tile evaluated."""
+    ``exact_fwd_kernel`` (csrc/raster.cu, one thread-block cluster a tile)
+    for CUDA tensors, the plain version for CPU tensors. ``work`` (optional,
+    int32 (N·T,)) is overwritten with the number of 8-face subgroups each
+    tile evaluated, the early-out included: written once a tile, so it need
+    not come zeroed."""
     if face_data.device.type == "cpu":
-        return exact_fwd_plain(face_data, mask, H, W, sigma)
+        return exact_fwd_plain(face_data, mask, H, W, sigma, work=work)
     N, C = face_data.shape[0], face_data.shape[1]
     _, _, T = _tile_grid(H, W)
     _kernels.check(face_data, "face_data", torch.float32, (N, C, FACE_CHUNK, 8))

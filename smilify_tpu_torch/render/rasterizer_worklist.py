@@ -84,17 +84,20 @@ def _gather_entries(face_flat, idx, count, n_i, t_i, s0, s1):
 # ---------------------------------------------------------------------------
 
 
-def worklist_fwd_plain(face_flat, idx, count, H, W, sigma):
+def worklist_fwd_plain(face_flat, idx, count, H, W, sigma, work=None):
     """Plain version of the work-list forward kernel: S tiles (N, T,
     TILE_PIX). Each tile walks its first ``count`` entries in batches of
     GROUPS_PER_CHUNK, and stops once its minimum S reached SATURATION_S at
-    the start of a batch."""
+    the start of a batch. ``work`` (optional, int32 (N·T,)) is overwritten
+    with the number of list entries each tile evaluated."""
     N, T, k_sub = idx.shape
     px, py = _tile_pixels(H, W, face_flat.dtype, face_flat.device)
     S = torch.zeros((N, T, TILE_PIX), dtype=face_flat.dtype, device=face_flat.device)
+    n_work = torch.zeros((N, T), dtype=torch.int32, device=face_flat.device)
     inv_sigma = 1.0 / sigma
     for b0 in range(0, k_sub, GROUPS_PER_CHUNK):
         live = (count > b0) & (S.amin(dim=-1) < SATURATION_S)
+        n_work += torch.where(live, torch.clamp(count - b0, max=GROUPS_PER_CHUNK), 0)
         for s0 in range(b0, min(b0 + GROUPS_PER_CHUNK, k_sub), GROUPS_PER_WORD):
             s1 = min(s0 + GROUPS_PER_WORD, k_sub)
             n_i, t_i = torch.nonzero(live & (count > s0), as_tuple=True)
@@ -103,15 +106,19 @@ def worklist_fwd_plain(face_flat, idx, count, H, W, sigma):
             fa, gate, _ = _gather_entries(face_flat, idx, count, n_i, t_i, s0, s1)
             S.index_put_((n_i, t_i), _fwd_terms(px[t_i], py[t_i], fa, gate, inv_sigma),
                          accumulate=True)
+    if work is not None:
+        work.copy_(n_work.reshape(-1))
     return S
 
 
 def worklist_fwd(face_flat, idx, count, H, W, sigma, work=None):
     """S tiles (N, T, TILE_PIX) of the work-list raster: the CUDA kernel
-    ``worklist_fwd_kernel`` (csrc/raster.cu) for CUDA tensors, the plain
-    version for CPU tensors. ``work`` as for ``rasterizer.exact_fwd``."""
+    ``worklist_fwd_kernel`` (csrc/raster.cu, one thread-block cluster a
+    tile) for CUDA tensors, the plain version for CPU tensors. ``work`` as
+    for ``rasterizer.exact_fwd``: overwritten with the list entries each
+    tile evaluated."""
     if face_flat.device.type == "cpu":
-        return worklist_fwd_plain(face_flat, idx, count, H, W, sigma)
+        return worklist_fwd_plain(face_flat, idx, count, H, W, sigma, work=work)
     N, F8 = face_flat.shape[0], face_flat.shape[1]
     _, _, T = _tile_grid(H, W)
     k_sub = idx.shape[-1]

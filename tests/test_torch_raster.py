@@ -42,6 +42,19 @@ def _scene(seed, N, F, spread=0.8, size=0.25):
     return tri, valid, z
 
 
+def _saturating_scene(N=2, F=600):
+    """F copies (jittered by 0.01) of one large triangle, (0, −3), (0, 3),
+    (5, 0), over the left tile of a 32×64 image (NDC x > 0) and not the
+    right one; z rises with the face index, so the work lists keep face
+    order. Every subgroup's bounding box (+ blur margin) touches both
+    tiles."""
+    rng = np.random.RandomState(7)
+    base = np.array([[0.0, -3.0], [0.0, 3.0], [5.0, 0.0]], np.float32)
+    tri = (base + rng.uniform(-0.01, 0.01, (N, F, 3, 2))).astype(np.float32)
+    z = np.broadcast_to((np.arange(F, dtype=np.float32) / F + 0.5)[None, :, None], (N, F, 3))
+    return tri, np.ones((N, F), bool), z.copy()
+
+
 def _port(fn, tri, *args):
     """Run ``fn(tri_xy, *args)`` on the CPU; S and the tri_xy gradient for a
     fixed random cotangent."""
@@ -123,6 +136,35 @@ def test_reference_raster_matches_jax_oracle():
     np.testing.assert_allclose(a_t, a_j, atol=1e-5)
 
 
+@pytest.mark.parametrize("mode", ["exact", "worklist"])
+def test_saturating_forward_matches_jax_oracle(mode):
+    """The saturation early-out at a batch boundary. In _saturating_scene
+    (F = 600: two cull chunks, 75 subgroups) the left tile's S passes
+    SATURATION_S everywhere within the first chunk (64 subgroups) and the
+    exact forward stops there; the right tile has all 75 cull bits but S ~0
+    over most of it, so it runs them all. The work-list forward (uncapped,
+    z in face order) stops the left tile after its first 64-entry batch.
+    The forward wrappers (plain versions on the CPU) count exactly those
+    subgroups in ``work``, and their alpha is the all-faces oracle's."""
+    tri, valid, z = _saturating_scene()
+    H, W = 32, 64
+    t, v = torch.from_numpy(tri), torch.from_numpy(valid)
+    work = torch.full((4,), -1, dtype=torch.int32)   # written, not added to
+    if mode == "exact":
+        S = R.exact_fwd(R._pack_faces(t, v), R._tile_cull_mask(t, v, H, W, SIGMA), H, W, SIGMA,
+                        work=work)
+    else:
+        idx, cnt = RW._tile_worklists(t, torch.from_numpy(z), v, H, W, SIGMA, 80)
+        S = RW.worklist_fwd(RW._pack_faces_flat(t, v), idx, cnt, H, W, SIGMA, work=work)
+    assert work.tolist() == [64, 75, 64, 75]
+    verts = np.concatenate([tri.reshape(2, -1, 2), z.reshape(2, -1, 1)], -1)
+    faces = np.arange(verts.shape[1], dtype=np.int32).reshape(-1, 3)
+    a_j = np.asarray(jax_soft_silhouette(jnp.asarray(verts), jnp.asarray(faces), (H, W),
+                                         znear=0.0, use_pallas=False))
+    assert a_j[:, :, :32].min() > 1 - 1e-6 and a_j[:, :, 32:].min() < 1e-6
+    np.testing.assert_allclose(_alpha(R._tiles_to_image(S, H, W).numpy()), a_j, atol=1e-4)
+
+
 # ---------------------------------------------------------------------------
 # work-list pair (K3, K4)
 # ---------------------------------------------------------------------------
@@ -162,25 +204,35 @@ def test_worklist_lists_match_jax_order():
     np.testing.assert_array_equal(idx_t.numpy()[live], idx_j[live])
 
 
-@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+@pytest.mark.parametrize("direction", ["fwd", "fwd_saturating", "bwd"])
 def test_plain_worklist_uncapped_equals_plain_exact(direction):
-    """Uncapped, both plain versions do the same work: the same S, and the
-    same face gradients. F = 600 spans two cull chunks and k_sub = 75 more
-    than one 64-entry batch, so the sums cross the chunk and list boundaries
-    where the backward kernels cut a tile's work over blocks."""
-    tri, valid, z = _scene(5, 2, 600, spread=0.9, size=0.1)
+    """Uncapped, both plain versions do the same work: the same S and the
+    same subgroups counted, and the same face gradients. F = 600 spans two
+    cull chunks and k_sub = 75 more than one 64-entry batch, so the sums
+    cross the chunk and list boundaries where the backward kernels cut a
+    tile's work over blocks. ``fwd_saturating`` (_saturating_scene) stops
+    one tile at those boundaries: after the first chunk (exact) and the
+    first batch (work list), the same 64 subgroups."""
+    if direction == "fwd_saturating":
+        tri, valid, z = _saturating_scene()
+    else:
+        tri, valid, z = _scene(5, 2, 600, spread=0.9, size=0.1)
     t, v = torch.from_numpy(tri), torch.from_numpy(valid)
     H, W = 32, 64
+    T = R._tile_grid(H, W)[2]
     face, mask = R._pack_faces(t, v), R._tile_cull_mask(t, v, H, W, SIGMA)
     flat = RW._pack_faces_flat(t, v)
     idx, cnt = RW._tile_worklists(t, torch.from_numpy(z), v, H, W, SIGMA, 75)
     assert face.shape[1] == 2 and int(cnt.max()) > R.GROUPS_PER_CHUNK, int(cnt.max())
-    if direction == "fwd":
-        S_e = R.exact_fwd_plain(face, mask, H, W, SIGMA)
-        S_w = RW.worklist_fwd_plain(flat, idx, cnt, H, W, SIGMA)
+    if direction.startswith("fwd"):
+        w_e, w_w = (torch.zeros(2 * T, dtype=torch.int32) for _ in range(2))
+        S_e = R.exact_fwd_plain(face, mask, H, W, SIGMA, work=w_e)
+        S_w = RW.worklist_fwd_plain(flat, idx, cnt, H, W, SIGMA, work=w_w)
         np.testing.assert_allclose(_alpha(S_w.numpy()), _alpha(S_e.numpy()), atol=1e-6)
+        np.testing.assert_array_equal(w_w.numpy(), w_e.numpy())
+        stopped = int((w_e < cnt.reshape(-1)).sum())
+        assert stopped == (2 if direction == "fwd_saturating" else 0), w_e
         return
-    T = R._tile_grid(H, W)[2]
     # the silhouette term's cotangent scale (w_reproj 1000 over H·W pixels)
     gS = np.random.RandomState(6).standard_normal((2, T, R.TILE_PIX)) * (1000.0 / (H * W))
     gS = torch.from_numpy(gS.astype(np.float32))
