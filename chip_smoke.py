@@ -14,7 +14,13 @@ J=55, B=5, made from a seed) and checks their results:
     configs 1, 3, 3b and 3c (N=1 and N=10 frames, both raster modes, the
     FP32 peak probe K5) with short timing windows;
   * the batched fitter against independent fits, a progressive fit, and
-    ``tools.bench_corpus`` at 8 clips.
+    ``tools.bench_corpus`` at 8 clips;
+  * the fitter CLIs (``cli.optimize_to_joints`` capped, exact and with the
+    Phong panel; ``cli.optimize_corpus``) on a synthetic replicAnt sequence
+    at 512², the model loaded from a pickle with Morton-sorted faces;
+  * 3D registration (``cli.optimise_3d.register``) of 8 target scans of
+    10,952 faces; config2's step (``tools.bench_all``) timed and profiled
+    at 1 and 8 targets, and config2 itself.
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after. Imports nothing of JAX or of the JAX package ``smilify_tpu``.
@@ -58,6 +64,7 @@ from collections import Counter
 from pathlib import Path
 from types import SimpleNamespace
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -457,12 +464,32 @@ def reference_phase(spec, dev):
     check(rel <= 1e-4, "fitter loss on the card disagrees with the CPU")
 
 
-def profile_phase(spec, data, dev, mode, cap):
-    """Device time by operation over 5 steps of stage 2 in one raster mode,
-    and the device's busy share of the wall time."""
+def device_ops(run):
+    """{operation name: (device µs, count)} over ``run()``: the kernels,
+    copies and fills, not the ranges the optimizer annotates."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+            us, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    return by_name
+
+
+def log_device_ops(by_name, steps, top):
+    log(f"  device time per step by operation, over {steps} profiled steps:")
+    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
+        log(f"    {us / 1e3 / steps:8.4f} ms  {n / steps:5.0f}x  {name[:100]}")
+
+
+def profile_phase(spec, data, dev, mode, cap):
+    """Device time by operation over 5 steps of stage 2 in one raster mode,
+    and the device's busy share of the wall time."""
     from smilify_tpu_torch.fitter.fitter import SmalFitter
     from smilify_tpu_torch.fitter.stages import test_schedule
 
@@ -475,15 +502,7 @@ def profile_phase(spec, data, dev, mode, cap):
     fitter.run_stage(2, weights)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fitter.run_stage(2, weights)
-        torch.cuda.synchronize()
-    by_name = {}
-    for e in prof.events():
-        # kernels, copies and fills; not the ranges the optimizer annotates
-        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
-            us, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    by_name = device_ops(lambda: fitter.run_stage(2, weights))
     if not by_name:
         log("  profile: the profiler recorded no device events")
         return
@@ -492,9 +511,7 @@ def profile_phase(spec, data, dev, mode, cap):
     log(f"  {mode} step in stage 2: wall {wall_ms:.3f} ms (unprofiled), device busy "
         f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}% of wall), {n_events:.0f} device "
         f"operations")
-    log(f"  device time per step by operation, over {steps} profiled steps:")
-    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
-        log(f"    {us / 1e3 / steps:8.4f} ms  {n / steps:5.0f}x  {name[:100]}")
+    log_device_ops(by_name, steps, 12)
 
 
 def bench_phase(spec, spec_name, dev):
@@ -603,6 +620,247 @@ def batched_phase(spec, spec_name, dev):
           "bench_corpus: a rate is not finite and positive")
 
 
+def posed_silhouette(spec, params, cap=None):
+    """The soft silhouette (1, H, W) of frame 0 of ``params`` (rest limb
+    scales as the fitter's, the default camera at the frame's fov)."""
+    from smilify_tpu_torch.fitter.fitter import _posed, _project_frames
+    from smilify_tpu_torch.render.cameras import default_camera
+    from smilify_tpu_torch.render.rasterizer import soft_silhouette
+
+    cam = default_camera(device=spec.device)
+    with torch.no_grad():
+        verts, joints, _, _ = _posed(spec, params, True)
+        ndc, _ = _project_frames(cam, params.fov, verts, joints, SIZE)
+        return soft_silhouette(ndc, spec.faces, SIZE, znear=cam.znear, approx_max_faces=cap)
+
+
+def k3_subgroups(spec, dev):
+    """(8-face subgroups on the capped work lists, subgroups K3 evaluated)
+    over the tiles of one posed frame at 512²."""
+    from smilify_tpu_torch.render import rasterizer_worklist as RW
+
+    x = raster_inputs(spec, 1, SIZE, dev)
+    work = torch.empty(x.N * x.T, dtype=torch.int32, device=dev)
+    RW.worklist_fwd(x.flat, x.idx, x.cnt, x.H, x.W, SIGMA, work=work)
+    return int(listed_work("worklist", x).sum()), int(work.sum())
+
+
+def check_frame_exports(out_dir, frames, stages):
+    """Every frame folder holds st{s}_ep0.{png,pkl,ply} for each stage of
+    ``stages`` and the final st10_ep0; returns the final PNG collages."""
+    from smilify_tpu_torch.utils.image_io import read_png
+
+    collages = []
+    for frame in frames:
+        d = Path(out_dir) / Path(frame).stem
+        want = {f"st{s}_ep0.{e}" for s in (*stages, 10) for e in ("png", "pkl", "ply")}
+        have = {p.name for p in d.iterdir()}
+        check(want <= have, f"{d}: missing exports {sorted(want - have)}")
+        collages.append(read_png(d / "st10_ep0.png"))
+    return collages
+
+
+def ply_vertices(path):
+    lines = Path(path).read_text().splitlines()
+    n = int(next(ln for ln in lines if ln.startswith("element vertex")).split()[-1])
+    start = lines.index("end_header") + 1
+    return torch.tensor([[float(v) for v in ln.split()] for ln in lines[start:start + n]])
+
+
+def cli_phase(toy, dev, card):
+    """The fitter CLIs at full width on a synthetic replicAnt sequence: the
+    STICK-width toy spec written as a model pickle (the CLIs load it with
+    Morton-sorted faces), 4 frames at 512² rendered from posed copies.
+    ``optimize_to_joints`` on frame 0 three times (the default cap: K3/K4;
+    ``--exact``: K1/K2; ``--texture``: the Phong panel), then
+    ``optimize_corpus`` on the 4 frames as one-frame clips; each with
+    ``--test --test-stages 4``."""
+    from smilify_tpu_torch.cli import optimize_corpus, optimize_to_joints
+    from smilify_tpu_torch.core.spec import load_model_spec
+    from smilify_tpu_torch.fitter.fitter import _posed, init_params, params_from_numpy
+    from smilify_tpu_torch.fitter.priors import shape_prior_from_spec
+    from smilify_tpu_torch.render.cameras import default_camera
+    from smilify_tpu_torch.render.phong import render_phong
+    from smilify_tpu_torch.tools.synthetic_data import write_model_pkl, write_replicant_sequence
+    from smilify_tpu_torch.utils.export import load_fitter_checkpoint
+    from smilify_tpu_torch.utils.visualization import silhouette_iou
+
+    work = ROOT / "build" / "smoke_cli"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    model = write_model_pkl(str(work / "stick_width.pkl"), toy)
+    spec = load_model_spec(model, align_symmetry=False, device=dev)
+    check(not torch.equal(spec.faces, toy.faces), "the loaded spec's faces are not Morton-sorted")
+    t0 = time.perf_counter()
+    coco, frames = write_replicant_sequence(str(work), spec, 4, SIZE[0])
+    log(f"  wrote {model} and 4 frames at 512² in {time.perf_counter() - t0:.2f} s")
+    for name, s in (("mesh-grid (phase 2)", toy), ("Morton (the CLIs)", spec)):
+        listed, evaluated = k3_subgroups(s, dev)
+        log(f"  K3 subgroups, 1 posed frame at 512², {name} face order: {listed} on the work "
+            f"lists, {evaluated} evaluated")
+
+    cam = default_camera(device=dev)
+    start = init_params(spec, 1, shape_prior_from_spec(spec))
+    with torch.no_grad():
+        v = _posed(spec, start, True)[0][0]
+        pv = cam.world_to_view(v)
+        ndc = torch.cat([cam.view_to_ndc(pv)[:, :2], pv[:, 2:3]], dim=1)
+        render_phong(v, pv, ndc, spec.faces, SIZE)
+        torch.cuda.reset_peak_memory_stats()
+        phong_ms = cuda_ms(lambda: render_phong(v, pv, ndc, spec.faces, SIZE), reps=3, warmup=1)
+    log(f"  render_phong at 512², F={spec.n_faces}: {phong_ms:.2f} ms, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
+
+    base = ["--model", model, "--data-root", coco, "--test", "--test-stages", "4",
+            "--device", str(dev)]
+    runs = {"capped": (["--sequence", f"replicAnt:{frames[0]}"], ("worklist_fwd", "worklist_bwd")),
+            "exact": (["--sequence", f"replicAnt:{frames[0]}", "--exact"],
+                      ("exact_fwd", "exact_bwd")),
+            "texture": (["--sequence", f"replicAnt:{frames[0]}", "--texture"],
+                        ("worklist_fwd", "worklist_bwd"))}
+    steps = 4 * ITERS_PER_STAGE
+    target = read_mask(coco, frames[0])
+    init_iou = silhouette_iou(posed_silhouette(spec, start), target)
+    collages = {}
+    for mode, (args, used) in runs.items():
+        out = work / mode
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        optimize_to_joints.main(base + args + ["--output-dir", str(out)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        log(f"  optimize_to_joints {mode}: {wall:.2f} s wall, {steps / wall:.2f} steps/s "
+            f"(40 steps, 5 exports, load included; {card}); launches {counts}")
+        for k in used:
+            check(counts[k] > 0, f"optimize_to_joints {mode}: kernel {k} never launched")
+        if mode == "exact":
+            check(counts["worklist_fwd"] == counts["worklist_bwd"] == 0,
+                  "optimize_to_joints --exact launched the work-list kernels")
+        collages[mode] = check_frame_exports(out, frames[:1], range(4))[0]
+        ck = load_fitter_checkpoint(str(out), frames[:1], 10, "0")
+        check(all(np.isfinite(a).all() for a in ck.values()),
+              f"optimize_to_joints {mode}: non-finite parameters")
+        params = params_from_numpy(ck, device=dev)
+        with torch.no_grad():
+            fitted = _posed(spec, params, True)[0][0].cpu()
+        ply = ply_vertices(out / Path(frames[0]).stem / "st10_ep0.ply")
+        err = float((fitted - ply).abs().max())
+        check(err <= 2e-5, f"optimize_to_joints {mode}: the checkpoint's vertices are {err} off "
+                           f"the exported PLY")
+        iou = silhouette_iou(posed_silhouette(spec, params), target)
+        log(f"    IoU with the target: initial {init_iou:.4f}, final {iou:.4f}; checkpoint "
+            f"against PLY max |Δv| {err:.2g}")
+        check(iou > init_iou, f"optimize_to_joints {mode}: the fit's IoU did not rise")
+    check(bool((collages["texture"] != collages["capped"]).any()),
+          "--texture: the collage is the silhouette one")
+
+    out = work / "corpus"
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    optimize_corpus.main(base + ["--all-replicant", "--output-dir", str(out)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    log(f"  optimize_corpus, 4 one-frame clips: {wall:.2f} s wall, {4 * steps / wall:.2f} "
+        f"clip-steps/s ({card}); launches {counts}, frames a launch "
+        f"{kernel_wrappers()['worklist_fwd'].frames / max(1, counts['worklist_fwd']):.1f}")
+    check(counts["worklist_fwd"] > 0 and counts["worklist_bwd"] > 0,
+          "optimize_corpus: the work-list kernels were never launched")
+    check(kernel_wrappers()["worklist_bwd"].frames == 4 * counts["worklist_bwd"],
+          "optimize_corpus: a raster launch did not take all 4 clips")
+    check_frame_exports(out, frames, range(4))
+    ck = load_fitter_checkpoint(str(out), frames, 10, "0")
+    check(all(np.isfinite(a).all() for a in ck.values()), "optimize_corpus: non-finite parameters")
+
+
+def read_mask(coco, frame):
+    from smilify_tpu_torch.utils.image_io import read_png
+
+    return read_png(Path(coco).parent / "SMIL" / (frame[:-9] + "ID.png"))[None, :, :, 0] > 0
+
+
+def registration_phase(toy, dev, card):
+    """3D registration at full width: 8 target scans (``toy_model_spec(75,
+    55, 5)``: 5,625 vertices, 10,952 faces, about the Atta scan's 10,878),
+    posed and scaled from a seed, written as ``.obj`` and read back; the
+    optimise_3d CLI's body (``register``) fits the 55-side template to all 8
+    at once in two stages (``init``, then ``default``) of 20 steps at 3000
+    samples; then config2's step (``bench_all``) at 1 and 8 targets, timed
+    and profiled, and config2 itself against one of them."""
+    from smilify_tpu_torch.cli.optimise_3d import register
+    from smilify_tpu_torch.core.spec import toy_model_spec
+    from smilify_tpu_torch.fitter.fitter3d import Fit3DParams, Stage
+    from smilify_tpu_torch.tools import bench_all
+    from smilify_tpu_torch.tools._timing import timeit_chain
+    from smilify_tpu_torch.tools.synthetic_data import posed_target_meshes
+    from smilify_tpu_torch.utils.export import load_obj, save_obj
+
+    work = ROOT / "build" / "smoke_registration"
+    shutil.rmtree(work, ignore_errors=True)
+    (work / "scans").mkdir(parents=True)
+    scan = toy_model_spec(75, 55, 5, seed=1, device=dev)
+    faces = scan.faces.cpu().numpy()
+    paths = []
+    for i, v in enumerate(posed_target_meshes(scan, 8, seed=7)):
+        paths.append(str(work / "scans" / f"scan{i}.obj"))
+        save_obj(paths[-1], v, faces)
+    log(f"  8 target scans of V={scan.n_verts}, F={scan.n_faces}; template V={toy.n_verts}, "
+        f"F={toy.n_faces}")
+    stages = [Stage("init", "init", n_its=20, lr=0.01),
+              Stage("default", "default", n_its=20, lr=0.005)]
+    seen, chunk_end = [], {}
+
+    def on_step(b, stage, it, loss, objs):
+        # called for every step after its chunk of 10 was read back: the
+        # clock at the first step of a chunk marks that chunk's end
+        seen.append(objs["chamfer"])
+        if it % 10 == 0:
+            chunk_end[stage, it] = time.perf_counter()
+
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    register(toy, paths, stages, str(work / "results"), batch_size=-1, num_samples=3000,
+             chunk=10, callback=on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    step_ms = [1e3 * (chunk_end[st.name, 10] - chunk_end[st.name, 0]) / 10 for st in stages]
+    log(f"  registration, 8 targets, 2 × 20 steps at 3000 samples: {wall:.2f} s wall (obj "
+        f"loading, topology and npz included); steady {step_ms[0]:.2f} / {step_ms[1]:.2f} ms a "
+        f"step in stage init / default (a chunk of 10 between read-backs; {card}); launches "
+        f"{read_counts()}")
+    first, last = float(np.mean(seen[:5])), float(np.mean(seen[-5:]))
+    log(f"    chamfer: first 5 steps {first:.6g}, last 5 {last:.6g}")
+    check(all(math.isfinite(c) for c in seen) and last < first, "registration: chamfer did not fall")
+    data = np.load(work / "results" / "batch_0" / "default.npz")
+    want = {*Fit3DParams.fields(), "verts", "joints", "faces", "labels"}
+    check(set(data.files) == want and data["verts"].shape == (8, toy.n_verts, 3)
+          and np.isfinite(data["verts"]).all(), f"registration npz: keys {data.files}")
+
+    meshes = [load_obj(p) for p in paths]
+    steps = 5
+    for n in (1, 8):
+        step, params = bench_all.fitter3d_step(toy, meshes[:n])
+        ms = 1e3 * timeit_chain(step, params, n1=10, n2=40, warmup=3, repeats=3, target_s=0.5)
+        by_name = device_ops(lambda: [step(params) for _ in range(steps)])
+        check(bool(by_name), "registration: the profiler recorded no device events")
+        busy_ms = sum(us for us, _ in by_name.values()) / 1e3 / steps
+        n_ops = sum(k for _, k in by_name.values()) / steps
+        log(f"  config2's step at {n} target(s): {ms:.3f} ms (timeit_chain), device busy "
+            f"{busy_ms:.3f} ms ({100 * busy_ms / ms:.1f}%), {n_ops:.0f} device operations a "
+            f"step ({card})")
+        log_device_ops(by_name, steps, 6)
+        check(all(torch.isfinite(getattr(params, k)).all() for k in params.fields()),
+              f"registration step at {n} target(s): non-finite parameters")
+
+    res = bench_all.bench_fitter3d(toy, paths[0], repeats=3, target_s=0.5)
+    log(f"  bench_all config2 (1 target, 3000 samples): {json.dumps(res)} ({card})")
+    check(math.isfinite(res["step_ms"]) and res["step_ms"] > 0, "config2: step_ms not positive")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs an NVIDIA GPU")
@@ -625,7 +883,7 @@ def main():
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
 
-    log("[1/7] build")
+    log("[1/9] build")
     t0 = time.perf_counter()
     libs = _kernels.build_all()
     log(f"  built {', '.join(p.name for p in libs.values())} in {time.perf_counter() - t0:.1f} s")
@@ -645,7 +903,7 @@ def main():
     spec, spec_name = load_spec(device=dev)
     log(f"  spec: {spec_name}, B={spec.n_betas}")
 
-    log("[2/7] kernels against their plain versions at the driven paths' shapes")
+    log("[2/9] kernels against their plain versions at the driven paths' shapes")
     shape = source_constants(RASTER_CU.read_text(), FWD_SHAPE + BWD_SHAPE)
     log(f"  launch shapes (csrc/raster.cu): {shape}")
     raster = ("exact_fwd", "exact_bwd", "worklist_fwd", "worklist_bwd")
@@ -663,7 +921,7 @@ def main():
     for n_frames, size in ((1, SIZE),) + shapes:
         kernel_phase(spec, n_frames, size, dev, saturating=True)
     records.append(peak_phase(dev))
-    log("[3/7] main path: SmalFitter, 4 stages × 10 steps, 1 frame at 512²")
+    log("[3/9] main path: SmalFitter, 4 stages × 10 steps, 1 frame at 512²")
     data = synthetic_fit_data(spec, 1, SIZE)
     cover = float(data.sil.mean())
     log(f"  target silhouette covers {cover:.4f} of the image")
@@ -708,21 +966,27 @@ def main():
     log(f"  IoU of capped (cap {cap}) against exact on the exact fit's pose: {iou_cap:.4f}")
     check(iou_cap >= 0.99, "capped raster IoU against exact below 0.99")
 
-    log("[4/7] references")
+    log("[4/9] references")
     reference_phase(spec, dev)
 
-    log("[5/7] where the time goes: 1 and 10 frames")
+    log("[5/9] where the time goes: 1 and 10 frames")
     data10 = synthetic_fit_data(spec, 10, SIZE)
     for frames, d in ((1, data), (10, data10)):
         for mode, (mode_cap, _) in modes.items():
             profile_phase(spec, d, dev, f"{mode}, {frames} frame(s),", mode_cap)
 
-    log("[6/7] bench path: bench, bench_all configs 1, 3, 3b, 3c (short windows)")
+    log("[6/9] bench path: bench, bench_all configs 1, 3, 3b, 3c (short windows)")
     bench_counts = bench_phase(spec, spec_name, dev)
     records[4]["launches"] = bench_counts["fma_peak"]
 
-    log("[7/7] batched and progressive fitters, bench_corpus")
+    log("[7/9] batched and progressive fitters, bench_corpus")
     batched_phase(spec, spec_name, dev)
+
+    log("[8/9] fitter CLIs: optimize_to_joints (capped, exact, texture), optimize_corpus at 512²")
+    cli_phase(spec, dev, card)
+
+    log("[9/9] 3D registration: 8 targets, 2 stages; bench_all config2")
+    registration_phase(spec, dev, card)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}), flush=True)

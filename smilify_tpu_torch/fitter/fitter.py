@@ -440,6 +440,8 @@ class SmalFitter:
             n = chunk if weights.num_iters - it >= chunk else 1
             results = [step() for _ in range(n)]
             loss = results[-1][0]
+            # callbacks see the end-of-chunk parameters, as the JAX fitter's do
+            self.params = FitParams(**{k: v.detach() for k, v in leaves.items()})
             if callback is not None:
                 if n == 1:
                     callback(stage_id, it, *results[0])

@@ -4,7 +4,9 @@
     joint angles, root excluded;
   * dynamic joint-limit prior — ±0.01 "ball joint" ranges per non-root joint;
   * shape prior — Cholesky-precision Mahalanobis from the model's
-    ``shape_cov`` / ``shape_mean_betas``.
+    ``shape_cov`` / ``shape_mean_betas``;
+  * legacy walking pose prior and WLDO Unity shape prior, loaded from their
+    (non-redistributable) pkl / npz files when given.
 
 Each prior is a small ``nn.Module`` whose tensors are buffers, so
 ``prior.to(device)`` moves it with the model.
@@ -94,3 +96,40 @@ def shape_prior_from_spec(spec: ModelSpec, n_betas: Optional[int] = None, dtype=
         mean_betas=torch.as_tensor(mean, dtype=dtype).to(spec.device),
         precs=torch.as_tensor(prec, dtype=dtype).to(spec.device),
     )
+
+
+def walking_pose_prior(pkl_path: str, dtype=torch.float32, device="cpu") -> PosePrior:
+    """Legacy SMAL walking prior (35-part quadruped); mean + precision from
+    the pkl (python-2 pickle, read with latin1 strings)."""
+    import pickle
+
+    with open(pkl_path, "rb") as f:
+        u = pickle._Unpickler(f)
+        u.encoding = "latin1"
+        res = u.load()
+    mean = np.asarray(res["mean_pose"], dtype=np.float64)
+    precs = np.asarray(res["pic"], dtype=np.float64)
+    n = precs.shape[0]
+    mask = np.ones(n, dtype=np.float32)
+    mask[:3] = 0.0
+    return PosePrior(
+        mean=torch.as_tensor(np.concatenate([np.zeros(3), mean])[:n], dtype=dtype),
+        precs=torch.as_tensor(precs, dtype=dtype),
+        use_mask=torch.as_tensor(mask, dtype=dtype),
+    ).to(device)
+
+
+def unity_shape_prior(npz_path: str, n_betas: int = 20, dtype=torch.float32,
+                      device="cpu") -> ShapePrior:
+    """WLDO Unity dog prior (betas ⊕ 6 scale params); reference fitter.py:86-107.
+    ``n_betas`` is accepted for the JAX signature and, as there, unused: the
+    prior keeps every entry of the npz but the last."""
+    data = np.load(npz_path)
+    cov = data["cov"][:-1, :-1]
+    mean = data["mean"][:-1]
+    invcov = np.linalg.inv(cov + 1e-5 * np.eye(cov.shape[0]))
+    prec = np.linalg.cholesky(invcov)
+    return ShapePrior(
+        mean_betas=torch.as_tensor(mean, dtype=dtype),
+        precs=torch.as_tensor(prec, dtype=dtype),
+    ).to(device)

@@ -1,10 +1,13 @@
 """The fitter configs of ``tools/bench_all.py`` on the card (port).
 
     python -m smilify_tpu_torch.tools.bench_all [--only config3 ...] [--model PKL]
-        [--out build/bench_all.json] [--device cuda]
+        [--target-obj OBJ] [--out build/bench_all.json] [--device cuda]
 
 Configs:
   config1_smil_forward_stick                   SMIL forward at batch 1 and 64
+  config2_fitter3d_atta                        one 3D-registration step against one
+                                               target scan (``--target-obj``; runs only
+                                               when that is given)
   config3_smalfitter_512                       fitter step, 1 frame, exact raster
   config3b_smalfitter_512_window10             fitter step, 10 frames, exact raster
   config3c_smalfitter_512_window10_worklist    10 frames, work-list raster capped at 800,
@@ -13,8 +16,10 @@ Configs:
 
 The fitter configs share one measurement of the card's FP32 FMA peak (K5,
 ``tools/peak.py``), the denominator of ``raster_work_bound_over_peak_pct``.
-Not ported yet: config2 (3D registration) and configs 4, 4b, 4c, 5a-5c (the
-regressors), which wait for the slices that bring their modules.
+Not ported yet: configs 4, 4b, 4c, 5a-5c (the regressors), which wait for
+the slice that brings their modules. config2's target scan (the JAX bench's
+is the Atta scan, which the repository does not hold) is ``--target-obj``:
+without it the run skips config2, and ``--only config2`` is refused.
 
 The model is ``--model``'s pickle or the STICK-width toy spec
 (``smilify_tpu_torch.bench``). Timing: ``tools/_timing.timeit_chain``, the
@@ -38,6 +43,12 @@ from smilify_tpu_torch._device import card_line, resolve_device
 from smilify_tpu_torch.bench import fit_step, load_spec, time_modes
 from smilify_tpu_torch.core.lbs import smil_forward
 from smilify_tpu_torch.fitter.fitter import FitParams, synthetic_fit_data
+from smilify_tpu_torch.fitter.fitter3d import (
+    init_3d_params,
+    pad_target_meshes,
+    registration_losses,
+    template_topology,
+)
 from smilify_tpu_torch.fitter.stages import OPT_WEIGHTS
 from smilify_tpu_torch.render import rasterizer as R
 from smilify_tpu_torch.render import rasterizer_worklist as RW
@@ -46,20 +57,25 @@ from smilify_tpu_torch.render.cameras import default_camera
 from smilify_tpu_torch.render.rasterizer import soft_silhouette
 from smilify_tpu_torch.tools._timing import timeit_chain
 from smilify_tpu_torch.tools.peak import SHAPE, flops, fma_peak
+from smilify_tpu_torch.utils.export import load_obj
 from smilify_tpu_torch.utils.visualization import silhouette_iou
 
 CONFIGS = (
     "config1_smil_forward_stick",
+    "config2_fitter3d_atta",
     "config3_smalfitter_512",
     "config3b_smalfitter_512_window10",
     "config3c_smalfitter_512_window10_worklist",
     "config3d_smalfitter_512_window10_worklist700",
 )
 # config → (frames, work-list cap or None for exact)
-FITTER_CONFIGS = {CONFIGS[1]: (1, None), CONFIGS[2]: (10, None),
-                  CONFIGS[3]: (10, 800), CONFIGS[4]: (10, 700)}
+FITTER_CONFIGS = {CONFIGS[2]: (1, None), CONFIGS[3]: (10, None),
+                  CONFIGS[4]: (10, 800), CONFIGS[5]: (10, 700)}
 PUBLISHED_FP32_PEAK_GFLOPS = 67_000.0   # H100 SXM, FP32 outside the tensor cores, 700 W
 OUT = Path(__file__).resolve().parents[2] / "build" / "bench_all.json"
+# the JAX bench's registration step (tools/bench_all.py:69-105)
+FIT3D_LOSS_WEIGHTS = {"chamfer": 1.0, "edge": 1.0, "normal": 0.01, "laplacian": 0.1, "sdf": 0.0}
+FIT3D_SAMPLES = 3000
 
 
 def bench_forward(spec, repeats=3, target_s=1.0):
@@ -82,6 +98,42 @@ def bench_forward(spec, repeats=3, target_s=1.0):
         res[f"b{batch}_ms"] = dt * 1000
         res[f"b{batch}_samples_per_sec"] = batch / dt
     return res
+
+
+def fitter3d_step(spec, meshes):
+    """config2's registration step against the target ``meshes`` [(verts,
+    faces), ...], registered at once: every field of ``Fit3DParams`` under one
+    Adam(1e-3), chamfer + edge + normal + laplacian at 3000 samples a mesh.
+    As in the JAX bench, every step draws the same samples (its generator is
+    re-seeded a step, as the JAX step reuses one key). Returns ``(step,
+    params)``: ``step(params)`` takes one step and returns ``params``."""
+    targets = pad_target_meshes(meshes, device=spec.device)
+    params = init_3d_params(spec, len(meshes))
+    for name in params.fields():
+        getattr(params, name).requires_grad_(True)
+    topo = template_topology(spec)
+    opt = torch.optim.Adam([getattr(params, k) for k in params.fields()], lr=1e-3)
+    gen = torch.Generator(device=spec.device)
+
+    def step(state):
+        gen.manual_seed(0)
+        opt.zero_grad(set_to_none=True)
+        total, _ = registration_losses(spec, topo, state, targets, gen, FIT3D_LOSS_WEIGHTS,
+                                       num_samples=FIT3D_SAMPLES)
+        total.backward()
+        opt.step()
+        return state
+
+    return step, params
+
+
+def bench_fitter3d(spec, target_obj, repeats=3, target_s=1.0):
+    """One registration step of the template against one target scan."""
+    v, f = load_obj(target_obj)
+    step, params = fitter3d_step(spec, [(v, f)])
+    dt = timeit_chain(step, params, n1=10, n2=40, warmup=3, repeats=repeats, target_s=target_s)
+    return {"step_ms": dt * 1000, "iters_per_sec": 1 / dt,
+            "target_verts": int(v.shape[0]), "samples": FIT3D_SAMPLES}
 
 
 def measure_fp32_fma_peak_gflops(device="cuda", repeats=3, target_s=1.0):
@@ -197,14 +249,17 @@ def bench_fitter_step(spec, n_frames=1, approx_max_faces=None, fp32_peak_gflops=
     return out
 
 
-def run(spec, only=None, size=512, repeats=3, target_s=1.0) -> dict:
-    """The configs whose key contains any string of ``only`` (all when None)."""
+def run(spec, only=None, size=512, repeats=3, target_s=1.0, target_obj=None) -> dict:
+    """The configs whose key contains any string of ``only`` (all when None);
+    config2 only with a ``target_obj``."""
     def wanted(key):
         return only is None or any(s in key for s in only)
 
     report = {}
     if wanted(CONFIGS[0]):
         report[CONFIGS[0]] = bench_forward(spec, repeats, target_s)
+    if wanted(CONFIGS[1]) and target_obj is not None:
+        report[CONFIGS[1]] = bench_fitter3d(spec, target_obj, repeats, target_s)
     fitter_configs = [k for k in FITTER_CONFIGS if wanted(k)]
     peak = None
     if fitter_configs and spec.device.type == "cuda":
@@ -224,9 +279,14 @@ def main(argv=None):
                     help="run only configs whose key contains any of these substrings; "
                          "results merge into the existing --out file")
     ap.add_argument("--model", default=None, help="model pickle (default: the STICK-width toy spec)")
+    ap.add_argument("--target-obj", type=Path, default=None,
+                    help="config2's target scan (the JAX bench's is the Atta scan, which "
+                         "the repository does not hold); without it config2 is skipped")
     ap.add_argument("--out", type=Path, default=OUT)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    if args.target_obj is None and any(s in CONFIGS[1] for s in args.only or ()):
+        ap.error("config2 needs its target scan: pass --target-obj")
     dev = resolve_device(args.device)
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -235,7 +295,7 @@ def main(argv=None):
     report = {"device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else str(dev),
               "card": card_line() if dev.type == "cuda" else None,
               "model": name, "timestamp": time.strftime("%Y-%m-%d %H:%M:%S")}
-    report.update(run(spec, args.only))
+    report.update(run(spec, args.only, target_obj=args.target_obj))
     if args.only is not None and args.out.exists():
         report = {**json.loads(args.out.read_text()), **report}
     args.out.parent.mkdir(parents=True, exist_ok=True)

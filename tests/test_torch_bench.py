@@ -218,7 +218,7 @@ def test_worklist_iou(specs):
 def test_bench_all_main_merges_into_out(specs, monkeypatch, tmp_path):
     monkeypatch.setattr(bench_all, "load_spec", lambda model, dev: (specs[1], "toy"))
     seen = []
-    monkeypatch.setattr(bench_all, "run", lambda spec, only: seen.append(only) or
+    monkeypatch.setattr(bench_all, "run", lambda spec, only, **kw: seen.append(only) or
                         {"config1_smil_forward_stick": {"b1_ms": 1.0}})
     out = tmp_path / "bench.json"
     out.write_text(json.dumps({"config9_kept": 1, "config1_smil_forward_stick": {}}))

@@ -4,12 +4,16 @@
   ``chip_smoke.py`` imports JAX, Flax, Optax or anything of the JAX package
   ``smilify_tpu`` (importing any of its modules runs its ``__init__``,
   which imports JAX).
+* At module level they import only what the card's machine has: the
+  standard library, numpy, scipy, torch and the port itself (imageio, cv2,
+  matplotlib and yaml only inside the functions that the card never calls).
 * An entry point given no device runs on ``cuda`` or raises; it never falls
   back to the CPU on its own.
 """
 
 import ast
 import pathlib
+import sys
 
 import numpy as np
 import pytest
@@ -17,6 +21,8 @@ import torch
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "smilify_tpu")
+# what the card's machine has, besides the standard library
+CARD_PACKAGES = {"numpy", "scipy", "torch", "smilify_tpu_torch"}
 
 
 def _port_files():
@@ -37,6 +43,46 @@ def _imported_roots(path):
               in ("import_module", "__import__") and node.args
               and isinstance(node.args[0], ast.Constant) and isinstance(node.args[0].value, str)):
             yield node.args[0].value.split(".")[0]
+
+
+def _module_level_roots(path):
+    """Roots of the imports that run when ``path`` is imported: those outside
+    any function body (class bodies and ``if``/``try`` blocks included)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    stack = list(tree.body)
+    while stack:
+        node = stack.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+            continue
+        if isinstance(node, ast.Import):
+            yield from (alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+        stack.extend(ast.iter_child_nodes(node))
+
+
+def _card_allowed(files):
+    local = {f.stem for f in files}          # chip_smoke, the scripts importing each other
+    return set(sys.stdlib_module_names) | CARD_PACKAGES | local | {"__future__"}
+
+
+def test_port_imports_only_the_cards_packages_at_module_level():
+    files = _port_files()
+    allowed = _card_allowed(files)
+    bad = [(f.relative_to(REPO).as_posix(), root) for f in files
+           for root in _module_level_roots(f) if root not in allowed]
+    assert bad == []
+
+
+def test_module_level_scan_sees_a_stray_import(tmp_path):
+    p = tmp_path / "m.py"
+    p.write_text("import os\nimport numpy as np\nimport cv2\n"
+                 "try:\n    from yaml import safe_load\nexcept ImportError:\n    pass\n"
+                 "class A:\n    import imageio\n"
+                 "def f():\n    import matplotlib\n")
+    roots = set(_module_level_roots(p))
+    assert roots == {"os", "numpy", "cv2", "yaml", "imageio"}
+    assert roots - _card_allowed([p]) == {"cv2", "yaml", "imageio"}
 
 
 def test_port_imports_nothing_of_jax():
@@ -62,6 +108,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from smilify_tpu_torch.fitter.progressive import ProgressiveFitter
     from smilify_tpu_torch.render.cameras import default_camera
     from smilify_tpu_torch.render.rasterizer import auto_approx_max_faces
+    from smilify_tpu_torch.cli import optimise_3d, optimize_corpus, optimize_to_joints, sdf_batch
+    from smilify_tpu_torch.fitter.fitter3d import fit3d_params_from_numpy, pad_target_meshes
     from smilify_tpu_torch.tools import bench_all, bench_corpus, bench_progressive
 
     spec = toy_model_spec(device="cpu")
@@ -86,6 +134,15 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         lambda: bench_all.measure_fp32_fma_peak_gflops(),
         lambda: bench_corpus.main([]),
         lambda: bench_progressive.main([]),
+        lambda: optimize_to_joints.main(["--model", "m.pkl"]),
+        lambda: optimize_corpus.main(["--model", "m.pkl", "--all-replicant"]),
+        lambda: optimise_3d.main(["--model", "m.pkl", "--mesh_dir", ".", "--yaml_src", "c.yaml"]),
+        lambda: sdf_batch.main(["--mesh_dir", "."]),
+        lambda: bench_all.main(["--only", "config2", "--target-obj", "t.obj"]),
+        lambda: pad_target_meshes([(np.zeros((3, 3)), np.zeros((1, 3), int))]),
+        lambda: fit3d_params_from_numpy({k: np.zeros(1) for k in
+                                         ("global_rot", "joint_rot", "betas", "trans",
+                                          "log_beta_scales", "betas_trans", "deform_verts")}),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
