@@ -20,7 +20,12 @@ J=55, B=5, made from a seed) and checks their results:
     at 512², the model loaded from a pickle with Morton-sorted faces;
   * 3D registration (``cli.optimise_3d.register``) of 8 target scans of
     10,952 faces; config2's step (``tools.bench_all``) timed and profiled
-    at 1 and 8 targets, and config2 itself.
+    at 1 and 8 targets, and config2 itself;
+  * the data pipeline: ``data.synthetic.synthesize_multiview`` at its
+    defaults (4 views at 96², chunks of 32) for 1,600 samples, one K1 launch
+    of 32 frames a (view, chunk), K1 held to its plain version at that
+    shape; ``train.trainer.DeviceDataCache`` over the samples; 200 of them
+    written to HDF5 and read back where h5py and OpenCV import.
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after. Imports nothing of JAX or of the JAX package ``smilify_tpu``.
@@ -48,7 +53,11 @@ how many tiles stopped early and fails if none did. The backward kernels K2
 and K4 run many blocks a tile and add their counts to ``work``; the blocks
 launched and the blocks that found work (both derived from the inputs by
 the kernels' exit rule) are logged. The records of K1-K4 add
-``ms_10_frames`` and ``bound_ms_10_frames`` (10 frames at 512²).
+``ms_10_frames`` and ``bound_ms_10_frames`` (10 frames at 512²); K1's adds
+``data_pipeline``, its launches, time and bound at the data pipeline's
+shape (32 frames at 96²) with the pipeline's rates. A kernel's time is the
+median of three windows of launches, printed with their spread
+(``ms_spread``).
 """
 
 from __future__ import annotations
@@ -102,6 +111,16 @@ BWD_SHAPE = ("kBwdThreads", "kK2Slice", "kK4Span")
 # region reach S ≥ 20 within the first batch and the tiles at its rim never do
 SAT_FACES = 6000
 SAT_SEED = 4
+# a kernel's time: the median of this many windows of launches (chip_smoke
+# phases 2 and 10), printed with their spread
+TIMING_WINDOWS = 3
+# phase 10, the data pipeline: synthesize_multiview at its defaults (4 views
+# at 96², chunks of 32) for 1,600 samples, the first generalization run's
+# size; the device cache's batch; the samples written to HDF5 and read back
+DATA_SAMPLES = 1600
+DATA_VIEWS, DATA_RES, DATA_CHUNK = 4, 96, 32
+DATA_BATCH = 32
+DATA_HDF5_SAMPLES = 200
 
 
 def log(msg):
@@ -129,6 +148,14 @@ def cuda_ms(fn, reps, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_ms_windows(fn, reps, windows=TIMING_WINDOWS, warmup=2):
+    """(median, [min, max]) of the mean milliseconds of ``fn()`` over
+    ``windows`` windows of ``reps`` launches each (:func:`cuda_ms`), so that
+    one cold window does not stand for the kernel."""
+    ms = sorted(cuda_ms(fn, reps, warmup if w == 0 else 0) for w in range(windows))
+    return ms[len(ms) // 2], [ms[0], ms[-1]]
 
 
 def bound(n_bytes, n_ops):
@@ -225,6 +252,62 @@ def source_constants(source, names):
     return {k: int(re.search(rf"constexpr int {k} = (\d+);", source).group(1)) for k in names}
 
 
+def fwd_err_reading(ref, out, work, face=None, mask=None, H=None, W=None):
+    """Where a forward kernel's alpha error peaks, read from the plain S
+    (N, T, TILE_PIX) and the kernel's: S and |ΔS| at that pixel (|ΔS| also in
+    float32 ulps of S; alpha = 1 - exp(-S), so the alpha error is
+    exp(-S)·|ΔS|), the faces its tile evaluated (subgroups × FACE_GROUP) and
+    the most any tile evaluated. Given the exact raster's packed faces and
+    cull words, also: the faces whose term at that pixel moves its float32
+    sum (at least half an ulp of S), the largest term, its d/σ (d the signed
+    squared distance) and how many of those faces share its d (faces around
+    one vertex, whose float32 roundings of d add up), the frame's median
+    edge in NDC (the cancellation in d grows with it), and both the kernel's
+    and the plain float32 alpha against the float64 plain version's."""
+    from smilify_tpu_torch.render import rasterizer as R
+
+    i = int((torch.exp(-ref) - torch.exp(-out)).abs().argmax())
+    n, t, p = np.unravel_index(i, tuple(ref.shape))
+    S, dS = float(ref[n, t, p]), abs(float(out[n, t, p]) - float(ref[n, t, p]))
+    faces = work.view(ref.shape[0], ref.shape[1]) * R.FACE_GROUP
+    rec = {"S": S, "dS": dS, "dS_ulps": dS / (max(S, 1e-30) * 2.0 ** -23),
+           "tile_faces": int(faces[n, t]), "max_tile_faces": int(faces.max()),
+           "max_S": float(ref.max())}
+    if face is None:
+        return rec
+    px, py = R._tile_pixels(H, W, torch.float64, face.device)
+    fa = face[n].reshape(1, -1, 8).double()
+    d, _ = R._signed_distance(px[t, p].view(1, 1, 1), py[t, p].view(1, 1, 1), fa)
+    terms = (fa[..., 6:7] * torch.nn.functional.softplus(-d / SIGMA)).flatten()
+    d = d.flatten()
+    k = int(terms.argmax())
+    adding = (terms > 0) & (terms >= S * 2.0 ** -24)
+    xy = fa[0, :, :6].reshape(-1, 3, 2)[fa[0, :, 6] > 0]
+    rec["faces_adding"] = int(adding.sum())
+    rec["largest_term"] = float(terms[k])
+    rec["share_its_d"] = int((adding & ((d - d[k]).abs() <= 1e-9 * d[k].abs())).sum())
+    rec["d_over_sigma"] = float(d[k]) / SIGMA
+    rec["median_edge"] = float((xy[:, [1, 2, 0]] - xy).norm(dim=-1).median())
+    ref64 = R.exact_fwd_plain(face.double(), mask, H, W, SIGMA)
+    a64 = torch.exp(-ref64)
+    rec["kernel_vs_f64"] = float((torch.exp(-out.double()) - a64).abs().max())
+    rec["plain_vs_f64"] = float((torch.exp(-ref.double()) - a64).abs().max())
+    return rec
+
+
+def err_line(r):
+    line = (f"at the worst pixel S {r['S']:.4g}, |dS| {r['dS']:.3g} ({r['dS_ulps']:.1f} ulps of "
+            f"S), its tile {r['tile_faces']} faces (most in a tile {r['max_tile_faces']}), "
+            f"max S {r['max_S']:.4g}")
+    if "faces_adding" in r:
+        line += (f"; {r['faces_adding']} faces add to S there (largest term "
+                 f"{r['largest_term']:.3g} at d/sigma {r['d_over_sigma']:.3g}, shared by "
+                 f"{r['share_its_d']}), median edge {r['median_edge']:.4f} NDC; alpha against "
+                 f"the float64 plain version's: kernel {r['kernel_vs_f64']:.3g}, float32 plain "
+                 f"{r['plain_vs_f64']:.3g}")
+    return line
+
+
 def bwd_blocks(kind, x, shape):
     """(blocks launched, blocks that find work) of one K2 or K4 launch at
     the launch shape ``shape`` (:func:`source_constants`), derived from the
@@ -307,7 +390,9 @@ def kernel_phase(spec, n_frames, size, dev, timed=(), saturating=False):
                 f"version's in every tile")
         if fwd:
             stopped = int((expect < listed_work(kind, x)).sum())
-            line += f"; {stopped} of {N * x.T} tiles stopped early"
+            rec["err_at"] = (fwd_err_reading(ref, out, expect, face, mask, H, W)
+                             if name == "exact_fwd" else fwd_err_reading(ref, out, expect))
+            line += f"; {stopped} of {N * x.T} tiles stopped early; {err_line(rec['err_at'])}"
             if saturating:
                 check(stopped > 0, f"{name}: no tile stopped early on the saturating scene ({at})")
         else:
@@ -315,11 +400,13 @@ def kernel_phase(spec, n_frames, size, dev, timed=(), saturating=False):
                                                                   BWD_SHAPE))
             line += f"; {launched} blocks, {busy} with work by the exit rule"
         if name in timed:
-            rec["ms"] = cuda_ms(lambda: kernel(*args), reps=20)
+            rec["ms"], rec["ms_spread"] = cuda_ms_windows(lambda: kernel(*args), reps=20)
             rec["plain_ms"] = cuda_ms(lambda: plain(*args), reps=2, warmup=1)
             b_ms, b_by = bound(nbytes(*inputs, out), pairs * ops_per_pair)
             rec.update(bound_ms=b_ms, bound_by=b_by, library_ms=None)
-            line += (f", {rec['ms']:.4f} ms (plain {rec['plain_ms']:.2f} ms, bound "
+            lo, hi = rec["ms_spread"]
+            line += (f", {rec['ms']:.4f} ms (median of {TIMING_WINDOWS} windows, {lo:.4f}-"
+                     f"{hi:.4f}; plain {rec['plain_ms']:.2f} ms, bound "
                      f"{rec['bound_ms']:.4f} ms by {rec['bound_by']})")
         log(line)
         records.append(rec)
@@ -381,11 +468,12 @@ def peak_phase(dev):
         log(f"  fma_peak {shape}: max rel err {rel:.3g} against its plain version")
         check(rel <= PEAK_RTOL, f"fma_peak disagrees with its plain version at {shape} ({rel})")
         errs.append(float((out - ref).abs().max()))
-    ms = cuda_ms(lambda: peak.fma_peak(x), reps=50, warmup=5)
+    ms, spread = cuda_ms_windows(lambda: peak.fma_peak(x), reps=50, warmup=5)
     plain_ms = cuda_ms(lambda: peak.fma_peak_plain(x), reps=2, warmup=1)
     b_ms, b_by = bound(nbytes(x, out), peak.flops(x.numel()))
     rate = peak.flops(x.numel()) / (ms * 1e-3)
-    log(f"  fma_peak {tuple(x.shape)}: {ms:.4f} ms = {rate / 1e12:.2f} TFLOP/s "
+    log(f"  fma_peak {tuple(x.shape)}: {ms:.4f} ms (median of {TIMING_WINDOWS} windows, "
+        f"{spread[0]:.4f}-{spread[1]:.4f}) = {rate / 1e12:.2f} TFLOP/s "
         f"({100 * rate / PEAK_FP32_PER_S:.1f}% of 67), plain {plain_ms:.2f} ms, bound "
         f"{b_ms:.4f} ms by {b_by}")
     lo, hi = PEAK_RATE_RANGE
@@ -393,8 +481,8 @@ def peak_phase(dev):
           f"fma_peak rate {rate / 1e12:.2f} TFLOP/s outside {lo:.0%}-{hi:.0%} of 67 TFLOP/s")
     return {"name": "fma_peak", "route": "cuda", "source": "smilify_tpu_torch/csrc/peak.cu",
             "replaces": "tools/bench_all.py:108", "launches": None, "max_abs_err": max(errs),
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None}
+            "ms": ms, "ms_spread": spread, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None}
 
 
 def drive_fitter(spec, data, cap, dev):
@@ -464,13 +552,16 @@ def reference_phase(spec, dev):
     check(rel <= 1e-4, "fitter loss on the card disagrees with the CPU")
 
 
-def device_ops(run):
+def device_ops(run, host=True):
     """{operation name: (device µs, count)} over ``run()``: the kernels,
-    copies and fills, not the ranges the optimizer annotates."""
+    copies and fills, not the ranges the optimizer annotates. ``host=False``
+    traces the device only, which slows a run of many small host
+    operations far less."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] * host + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         run()
         torch.cuda.synchronize()
     by_name = {}
@@ -860,6 +951,211 @@ def registration_phase(toy, dev, card):
     log(f"  bench_all config2 (1 target, 3000 samples): {json.dumps(res)} ({card})")
     check(math.isfinite(res["step_ms"]) and res["step_ms"] > 0, "config2: step_ms not positive")
 
+def data_k1_phase(spec, dev):
+    """K1 against its plain version at the shape the data pipeline launches
+    it: the first (view, chunk) of :func:`data_phase`'s run, DATA_CHUNK
+    frames at DATA_RES², made as ``synthesize_multiview`` makes them. Phase
+    2's gates (alpha within ALPHA_ATOL, ``work`` equal tile by tile); timed
+    over TIMING_WINDOWS windows. Returns (record, plain alpha (C, H, W))."""
+    from smilify_tpu_torch.core.lbs import smil_forward
+    from smilify_tpu_torch.data import synthetic as S
+    from smilify_tpu_torch.render import rasterizer as R
+    from smilify_tpu_torch.render._kernels import FWD_OPS_PER_PAIR
+
+    betas, grot, jrot, _ = S.draw_parameters(spec, DATA_SAMPLES)
+    theta = np.concatenate([grot[:, None], jrot], axis=1)[:DATA_CHUNK]
+    with torch.no_grad():
+        verts = smil_forward(spec, torch.from_numpy(betas[:DATA_CHUNK]).to(dev),
+                             torch.from_numpy(theta).to(dev)).verts
+        ndc = S.view_ndc(verts, *S.ring_cameras_opencv(DATA_VIEWS, resolution=DATA_RES)[0],
+                         DATA_RES)
+    tri = ndc[:, spec.faces.long()]
+    valid = torch.any(tri[..., 2] > S.ZNEAR, dim=-1)
+    H = W = DATA_RES
+    face, mask = R._pack_faces(tri[..., :2], valid), R._tile_cull_mask(tri[..., :2], valid,
+                                                                      H, W, R.SIGMA)
+    T = R._tile_grid(H, W)[2]
+    work = torch.full((DATA_CHUNK * T,), -1, dtype=torch.int32, device=dev)
+    expect = torch.empty_like(work)
+    out = R.exact_fwd(face, mask, H, W, R.SIGMA, work=work)
+    ref = R.exact_fwd_plain(face, mask, H, W, R.SIGMA, work=expect)
+    torch.cuda.synchronize()
+    at = f"N={DATA_CHUNK}, {H}x{W}, the data pipeline's first (view, chunk)"
+    check(bool(torch.isfinite(out).all()), f"exact_fwd: non-finite output ({at})")
+    check(float(out.max()) > 1.0, f"exact_fwd: the mesh covers no pixel ({at})")
+    err = float((torch.exp(-ref) - torch.exp(-out)).abs().max())
+    check(err <= ALPHA_ATOL, f"exact_fwd disagrees with its plain version ({at}, max abs err {err})")
+    bad = int((work != expect).sum())
+    check(bad == 0, f"exact_fwd: the subgroups counted differ from the plain version's in {bad} "
+                    f"tiles ({at})")
+    pairs = int(work.sum()) * R.FACE_GROUP * R.TILE_PIX
+    err_at = fwd_err_reading(ref, out, expect, face, mask, H, W)
+    ms, spread = cuda_ms_windows(lambda: R.exact_fwd(face, mask, H, W, R.SIGMA), reps=20)
+    plain_ms = cuda_ms(lambda: R.exact_fwd_plain(face, mask, H, W, R.SIGMA), reps=2, warmup=1)
+    b_ms, b_by = bound(nbytes(face, mask, out), pairs * FWD_OPS_PER_PAIR)
+    log(f"  {at} exact_fwd: max abs err {err:.3g}, pairs {pairs}, subgroups as the plain "
+        f"version's in every tile; {err_line(err_at)}; {ms:.4f} ms (median of "
+        f"{TIMING_WINDOWS} windows, {spread[0]:.4f}-{spread[1]:.4f}; plain {plain_ms:.2f} ms, "
+        f"bound {b_ms:.4f} ms by {b_by})")
+    rec = {"frames": DATA_CHUNK, "size": [H, W], "max_abs_err": err, "err_at": err_at,
+           "ms": ms, "ms_spread": spread, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+    return rec, 1.0 - torch.exp(-R._tiles_to_image(ref, H, W))
+
+
+def data_phase(toy, dev, card):
+    """Phase 10, the data pipeline at full width: the STICK-width toy spec
+    written as a model pickle and loaded with Morton-sorted faces, as the
+    CLIs load a model. ``synthesize_multiview`` at its defaults for
+    DATA_SAMPLES samples (one K1 launch a (view, chunk): exactly
+    DATA_VIEWS × the chunks, and no K2-K4), K1 held to its plain version at
+    that shape, the ``DeviceDataCache`` over the samples (a batch against the
+    host-side gather, an epoch of batches timed), and, where h5py and OpenCV
+    import, DATA_HDF5_SAMPLES samples written to HDF5 and read back. Returns
+    K1's record at the pipeline's shape, with its launches."""
+    from smilify_tpu_torch.core.spec import load_model_spec
+    from smilify_tpu_torch.data import synthetic as S
+    from smilify_tpu_torch.tools.synthetic_data import write_model_pkl
+    from smilify_tpu_torch.train.trainer import DeviceDataCache
+
+    work = ROOT / "build" / "smoke_data"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    spec = load_model_spec(write_model_pkl(str(work / "stick_width.pkl"), toy),
+                           align_symmetry=False, device=dev)
+    check(not torch.equal(spec.faces, toy.faces), "the loaded spec's faces are not Morton-sorted")
+    kw = dict(n_views=DATA_VIEWS, resolution=DATA_RES, chunk_size=DATA_CHUNK, device=dev)
+    S.synthesize_multiview(spec, 2 * DATA_CHUNK, **kw)           # warm-up (allocator, cuBLAS)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    samples = S.synthesize_multiview(spec, DATA_SAMPLES, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    n_k1 = DATA_VIEWS * math.ceil(DATA_SAMPLES / DATA_CHUNK)
+    log(f"  synthesize_multiview: {DATA_SAMPLES} samples, {DATA_VIEWS} views at {DATA_RES}², "
+        f"chunks of {DATA_CHUNK}: {seconds:.3f} s = {DATA_SAMPLES / seconds:.1f} samples/s "
+        f"({card}); launches {counts}")
+    check(counts["exact_fwd"] == n_k1, f"synthesize_multiview launched K1 {counts['exact_fwd']} "
+                                       f"times, expected {n_k1}")
+    check(all(n == 0 for k, n in counts.items() if k != "exact_fwd"),
+          f"synthesize_multiview launched another kernel than K1: {counts}")
+
+    check(len(samples) == DATA_SAMPLES, "synthesize_multiview: wrong number of samples")
+    images = np.stack([s["images"] for s in samples])
+    check(images.shape == (DATA_SAMPLES, DATA_VIEWS, DATA_RES, DATA_RES, 3)
+          and images.dtype == np.uint8, f"synthesize_multiview: images {images.shape}")
+    cover = (images.max(-1) > 0).mean(axis=(2, 3))
+    log(f"  silhouette coverage a view: {cover.min():.4f}-{cover.max():.4f} "
+        f"(mean {cover.mean():.4f}); keypoints visible {np.mean([s['keypoint_visibility'].mean() for s in samples]):.4f}")
+    check(cover.min() > 0.0 and cover.max() < 1.0, "synthesize_multiview: an empty or full image")
+    for k in ("keypoints_2d", "keypoints_3d"):
+        check(all(np.isfinite(s[k]).all() for s in samples), f"synthesize_multiview: non-finite {k}")
+
+    # the same run again under the profiler (device activity only): K1's
+    # device time summed over its launches there, against that run's own
+    # wall time (the run alone, not the profiler's set-up and read-out)
+    span = []
+
+    def profiled_run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        S.synthesize_multiview(spec, DATA_SAMPLES, **kw)
+        torch.cuda.synchronize()
+        span.append(time.perf_counter() - t0)
+
+    by_name = device_ops(profiled_run, host=False)
+    prof_s = span[0]
+    k1_us, k1_n = by_name.get(next((k for k in by_name if "exact_fwd_kernel" in k), ""), (0.0, 0))
+    busy_ms = sum(us for us, _ in by_name.values()) / 1e3
+    if by_name:
+        check(k1_n == n_k1, f"the profiled run shows {k1_n} K1 launches, expected {n_k1}")
+        log(f"  profiled run: wall {prof_s * 1e3:.1f} ms, device busy {busy_ms:.1f} ms "
+            f"({100 * busy_ms / (prof_s * 1e3):.1f}%), K1 {k1_us / 1e3:.1f} ms over {k1_n} "
+            f"launches ({100 * k1_us / 1e3 / (prof_s * 1e3):.1f}% of the wall)")
+        log_device_ops(by_name, 1, 6)
+    else:
+        log("  profile: the profiler recorded no device events; K1's share not measured")
+
+    rec, alpha = data_k1_phase(spec, dev)
+    rec["launches"] = counts["exact_fwd"]
+    rec["samples_per_s"] = DATA_SAMPLES / seconds
+    rec["profiled_wall_ms"] = prof_s * 1e3
+    rec["k1_device_ms"] = k1_us / 1e3 if by_name else None
+    rec["k1_share_of_wall"] = k1_us / 1e3 / (prof_s * 1e3) if by_name else None
+    rec["device_busy_ms"] = busy_ms if by_name else None
+    # the first (view, chunk)'s images against the plain version's alpha,
+    # coloured and quantized as the generator does: within one level
+    colour = torch.tensor(S.SILHOUETTE_RGB, dtype=torch.float32, device=dev)
+    plain_img = (alpha[..., None] * colour * 255).to(torch.uint8).cpu().numpy()
+    diff = np.abs(images[:DATA_CHUNK, 0].astype(int) - plain_img.astype(int)).max()
+    log(f"  the first chunk's view-0 images within {diff} level(s) of the plain version's")
+    check(diff <= 1, "synthesize_multiview: images differ from the plain raster's by more than 1")
+
+    t0 = time.perf_counter()
+    cache = DeviceDataCache(samples, device=dev)
+    torch.cuda.synchronize()
+    log(f"  DeviceDataCache: {cache.n} samples, {len(cache.arrays)} columns, {cache.bytes} bytes "
+        f"({cache.arrays['images'].numel()} of them images) on {dev}, built in "
+        f"{time.perf_counter() - t0:.3f} s")
+    idx = np.random.default_rng(0).permutation(DATA_SAMPLES)[:DATA_BATCH]
+    batch = cache.batch(idx)
+    for k, v in batch.items():
+        host = np.stack([np.asarray(samples[i][k]) for i in idx])
+        if k == "images":
+            host = host.astype(np.float32) * np.float32(1 / 255)
+        host = host.astype({np.dtype(np.float64): np.float32,
+                            np.dtype(np.int64): np.int32}.get(host.dtype, host.dtype))
+        check(np.array_equal(v.cpu().numpy(), host), f"DeviceDataCache batch: {k} differs from "
+                                                     f"the host-side gather")
+    log(f"  a batch of {DATA_BATCH} equals the host-side gather in all {len(batch)} columns")
+    for rep in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = sum(1 for _ in cache.iterate(DATA_BATCH, np.random.default_rng(rep)))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        log(f"  epoch {rep}: {n} batches of {DATA_BATCH} in {secs * 1e3:.2f} ms = "
+            f"{n / secs:.1f} batches/s")
+    check(n == DATA_SAMPLES // DATA_BATCH, f"DeviceDataCache: {n} batches in an epoch")
+    rec["cache_bytes"] = cache.bytes
+    rec["batches_per_s"] = n / secs
+    del cache
+
+    missing = []
+    for lib in ("h5py", "cv2"):
+        try:
+            mod = __import__(lib)
+            log(f"  {lib}: imports (version {getattr(mod, '__version__', '?')})")
+        except ImportError as e:
+            log(f"  {lib}: does not import ({e})")
+            missing.append(lib)
+    if missing:
+        log(f"  HDF5: not written, the host lacks {' and '.join(missing)} (a host library, "
+            f"not the card)")
+        return rec
+    from smilify_tpu_torch.data.hdf5_dataset import MultiViewHDF5Dataset, write_multiview_hdf5
+
+    path = str(work / "synthetic.h5")
+    t0 = time.perf_counter()
+    write_multiview_hdf5(path, samples[:DATA_HDF5_SAMPLES], max_views=DATA_VIEWS,
+                         target_resolution=DATA_RES,
+                         canonical_camera_order=[f"cam_{i}" for i in range(DATA_VIEWS)],
+                         n_pose=spec.n_joints - 1, n_betas=spec.n_betas,
+                         dataset_type="synthetic_multiview")
+    ds = MultiViewHDF5Dataset(path)
+    check(len(ds) == DATA_HDF5_SAMPLES, f"HDF5: {len(ds)} samples read back")
+    worst = 0.0
+    for i in range(DATA_HDF5_SAMPLES):
+        s, orig = ds[i], samples[i]
+        for k in ("keypoints_2d", "keypoints_3d", "betas", "joint_rot", "global_rot"):
+            check(np.array_equal(s[k], orig[k]), f"HDF5: sample {i} {k} differs")
+        worst = max(worst, float(np.abs(s["images"] - orig["images"] / 255.0).mean()))
+    log(f"  HDF5: h5py and cv2 present; {DATA_HDF5_SAMPLES} samples written and read back in "
+        f"{time.perf_counter() - t0:.2f} s, arrays equal, JPEG mean abs error at most {worst:.4f}")
+    check(worst < 0.02, "HDF5: the JPEG images differ from the samples'")
+    return rec
+
 
 def main():
     if not torch.cuda.is_available():
@@ -883,7 +1179,7 @@ def main():
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
 
-    log("[1/9] build")
+    log("[1/10] build")
     t0 = time.perf_counter()
     libs = _kernels.build_all()
     log(f"  built {', '.join(p.name for p in libs.values())} in {time.perf_counter() - t0:.1f} s")
@@ -903,7 +1199,7 @@ def main():
     spec, spec_name = load_spec(device=dev)
     log(f"  spec: {spec_name}, B={spec.n_betas}")
 
-    log("[2/9] kernels against their plain versions at the driven paths' shapes")
+    log("[2/10] kernels against their plain versions at the driven paths' shapes")
     shape = source_constants(RASTER_CU.read_text(), FWD_SHAPE + BWD_SHAPE)
     log(f"  launch shapes (csrc/raster.cu): {shape}")
     raster = ("exact_fwd", "exact_bwd", "worklist_fwd", "worklist_bwd")
@@ -917,11 +1213,12 @@ def main():
         timed = raster if n_frames == 10 else ()
         for rec, at_n in zip(records, kernel_phase(spec, n_frames, size, dev, timed)):
             if "ms" in at_n:
-                rec.update(ms_10_frames=at_n["ms"], bound_ms_10_frames=at_n["bound_ms"])
+                rec.update(ms_10_frames=at_n["ms"], ms_spread_10_frames=at_n["ms_spread"],
+                           bound_ms_10_frames=at_n["bound_ms"])
     for n_frames, size in ((1, SIZE),) + shapes:
         kernel_phase(spec, n_frames, size, dev, saturating=True)
     records.append(peak_phase(dev))
-    log("[3/9] main path: SmalFitter, 4 stages × 10 steps, 1 frame at 512²")
+    log("[3/10] main path: SmalFitter, 4 stages × 10 steps, 1 frame at 512²")
     data = synthetic_fit_data(spec, 1, SIZE)
     cover = float(data.sil.mean())
     log(f"  target silhouette covers {cover:.4f} of the image")
@@ -966,27 +1263,33 @@ def main():
     log(f"  IoU of capped (cap {cap}) against exact on the exact fit's pose: {iou_cap:.4f}")
     check(iou_cap >= 0.99, "capped raster IoU against exact below 0.99")
 
-    log("[4/9] references")
+    log("[4/10] references")
     reference_phase(spec, dev)
 
-    log("[5/9] where the time goes: 1 and 10 frames")
+    log("[5/10] where the time goes: 1 and 10 frames")
     data10 = synthetic_fit_data(spec, 10, SIZE)
     for frames, d in ((1, data), (10, data10)):
         for mode, (mode_cap, _) in modes.items():
             profile_phase(spec, d, dev, f"{mode}, {frames} frame(s),", mode_cap)
 
-    log("[6/9] bench path: bench, bench_all configs 1, 3, 3b, 3c (short windows)")
+    log("[6/10] bench path: bench, bench_all configs 1, 3, 3b, 3c (short windows)")
     bench_counts = bench_phase(spec, spec_name, dev)
     records[4]["launches"] = bench_counts["fma_peak"]
 
-    log("[7/9] batched and progressive fitters, bench_corpus")
+    log("[7/10] batched and progressive fitters, bench_corpus")
     batched_phase(spec, spec_name, dev)
 
-    log("[8/9] fitter CLIs: optimize_to_joints (capped, exact, texture), optimize_corpus at 512²")
+    log("[8/10] fitter CLIs: optimize_to_joints (capped, exact, texture), optimize_corpus at 512²")
     cli_phase(spec, dev, card)
 
-    log("[9/9] 3D registration: 8 targets, 2 stages; bench_all config2")
+    log("[9/10] 3D registration: 8 targets, 2 stages; bench_all config2")
     registration_phase(spec, dev, card)
+
+    log("[10/10] data pipeline: synthesize_multiview (1,600 samples, 4 views at 96²), "
+        "DeviceDataCache, HDF5")
+    t0 = time.perf_counter()
+    records[0]["data_pipeline"] = data_phase(spec, dev, card)
+    log(f"  phase 10: {time.perf_counter() - t0:.1f} s")
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}), flush=True)

@@ -7,7 +7,12 @@ JAX package so each module's counterpart is easy to find:
 core     : ModelSpec, rotations, linear blend skinning.
 render   : FoV camera, soft-silhouette rasterizer (hand-written CUDA kernels
            for sm_90a, with plain PyTorch versions for CPU tensors).
-fitter   : the 2D keypoint + silhouette optimization fitter.
+fitter   : the 2D keypoint + silhouette optimization fitter, and 3D registration.
+ops      : kNN, mesh sampling and losses, SDF.
+data     : loaders, the HDF5 dataset schema, replicAnt/SLEAP inputs,
+           augmentation, the synthetic multi-view generator.
+train    : the device-resident data cache.
+cli      : the fitter, registration and data command lines.
 
 Entry points take an explicit ``device`` that defaults to ``"cuda"`` and
 raise when CUDA is absent, unless the caller asks for ``device="cpu"``.

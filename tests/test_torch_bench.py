@@ -12,6 +12,8 @@ sets of the JAX benches are read
 from their sources.
 """
 
+import tests._torch_threads  # noqa: F401  (first: torch's thread share of a worker)
+
 import ast
 import json
 import pathlib

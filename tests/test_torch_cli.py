@@ -10,6 +10,8 @@ shading within 1e-5 where they agree; priors within 1e-5; the CLIs' final
 parameters and PLY vertices within 1e-4 and collages at most one level apart.
 """
 
+import tests._torch_threads  # noqa: F401  (first: torch's thread share of a worker)
+
 import json
 import os
 import pickle

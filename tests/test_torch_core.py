@@ -7,6 +7,8 @@ reference fixtures (tests/fixtures/smal_forward_*.npz, no model pickle
 needed) at the tolerances of tests/test_lbs_parity.py.
 """
 
+import tests._torch_threads  # noqa: F401  (first: torch's thread share of a worker)
+
 import dataclasses
 
 import jax

@@ -9,6 +9,8 @@ raster kernels, which drop only faces beyond the blur margin (alpha within
 ~1e-6), so the loss terms agree to rtol 1e-4.
 """
 
+import tests._torch_threads  # noqa: F401  (first: torch's thread share of a worker)
+
 import dataclasses
 
 import jax

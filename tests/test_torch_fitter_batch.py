@@ -12,6 +12,8 @@ Batched against independent port fits: ``tests/test_fitter_batch.py``'s
 tolerance (rtol 2e-4, atol 1e-5).
 """
 
+import tests._torch_threads  # noqa: F401  (first: torch's thread share of a worker)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -9,9 +9,13 @@
   matplotlib and yaml only inside the functions that the card never calls).
 * An entry point given no device runs on ``cuda`` or raises; it never falls
   back to the CPU on its own.
+* Every module of the port imports.
 """
 
+import tests._torch_threads  # noqa: F401  (first: torch's thread share of a worker)
+
 import ast
+import importlib
 import pathlib
 import sys
 
@@ -66,6 +70,14 @@ def _card_allowed(files):
     return set(sys.stdlib_module_names) | CARD_PACKAGES | local | {"__future__"}
 
 
+def test_scans_cover_every_port_module():
+    files = [f.relative_to(REPO).with_suffix("") for f in _port_files()]
+    modules = [".".join(f.parts) for f in files if f.parts[0] == "smilify_tpu_torch"]
+    assert "smilify_tpu_torch.train.trainer" in modules and "smilify_tpu_torch.cli.sleap_tools" in modules
+    for m in modules:
+        importlib.import_module(m.removesuffix(".__init__"))
+
+
 def test_port_imports_only_the_cards_packages_at_module_level():
     files = _port_files()
     allowed = _card_allowed(files)
@@ -111,6 +123,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from smilify_tpu_torch.cli import optimise_3d, optimize_corpus, optimize_to_joints, sdf_batch
     from smilify_tpu_torch.fitter.fitter3d import fit3d_params_from_numpy, pad_target_meshes
     from smilify_tpu_torch.tools import bench_all, bench_corpus, bench_progressive
+    from smilify_tpu_torch.cli import dataset_viewer
+    from smilify_tpu_torch.data.synthetic import generate_synthetic_multiview, synthesize_multiview
+    from smilify_tpu_torch.train.trainer import DeviceDataCache
 
     spec = toy_model_spec(device="cpu")
     data = FitData(rgb=None, sil=torch.zeros((1, 32, 32)), joints=torch.zeros((1, 6, 2)),
@@ -143,6 +158,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         lambda: fit3d_params_from_numpy({k: np.zeros(1) for k in
                                          ("global_rot", "joint_rot", "betas", "trans",
                                           "log_beta_scales", "betas_trans", "deform_verts")}),
+        lambda: synthesize_multiview(spec, 2),
+        lambda: generate_synthetic_multiview(spec, "s.h5", 2),
+        lambda: DeviceDataCache([{"x": np.zeros(2, np.float32)}]),
+        lambda: dataset_viewer.main(["--dataset", "d.h5"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -151,6 +170,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     assert SmalFitter(spec, data, (32, 32), device="cpu").device.type == "cpu"
     assert BatchedFitter(spec, clips, (32, 32), device="cpu").n_seqs == 2
     assert ProgressiveFitter(spec, data, (32, 32), device="cpu").fitter.device.type == "cpu"
+    assert len(synthesize_multiview(spec, 2, 2, 32, device="cpu")) == 2
+    assert DeviceDataCache([{"x": np.zeros(2, np.float32)}], device="cpu").n == 1
     # the FP32 peak is the card's: no CPU stand-in
     with pytest.raises(RuntimeError, match="CUDA device"):
         bench_all.measure_fp32_fma_peak_gflops(device="cpu")

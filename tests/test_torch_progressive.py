@@ -8,6 +8,8 @@ follows the JAX one to a tenth of each stage's lr, the tolerance of
 ``test_torch_fitter.py`` for Adam trajectories.
 """
 
+import tests._torch_threads  # noqa: F401  (first: torch's thread share of a worker)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

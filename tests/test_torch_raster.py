@@ -14,6 +14,8 @@ atol 5e-3 / rtol 1e-3 (tests/test_rasterizer.py: the per-pixel terms are
 O(1/σ) = 1e4 before the sums, so f32 sums in another order differ there).
 """
 
+import tests._torch_threads  # noqa: F401  (first: torch's thread share of a worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

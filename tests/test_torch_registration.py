@@ -10,6 +10,8 @@ float32 with full-precision matmuls), 1e-4 on parameters after a few Adam
 steps; indices and topology arrays exactly.
 """
 
+import tests._torch_threads  # noqa: F401  (first: torch's thread share of a worker)
+
 import ast
 import os
 import pathlib
