@@ -25,7 +25,21 @@ J=55, B=5, made from a seed) and checks their results:
     defaults (4 views at 96², chunks of 32) for 1,600 samples, one K1 launch
     of 32 frames a (view, chunk), K1 held to its plain version at that
     shape; ``train.trainer.DeviceDataCache`` over the samples; 200 of them
-    written to HDF5 and read back where h5py and OpenCV import.
+    written to HDF5 and read back where h5py and OpenCV import;
+  * neural serving (``bench_all`` configs 4 and 5a at full width: ResNet-50
+    + IEF head 256 × 4 × 3 at 224², seeded weights): the card held to the
+    CPU in float32 (TF32 off) and bf16 autocast held to float32, with one
+    5a sample's views all masked; ``cli.run_inference`` on 16 replicAnt
+    frames from a checkpoint written by ``train.trainer.save_checkpoint``
+    (smoothing, animation export, Phong renders on the card), and its model
+    in one batch of 16 against batches of 8 in float32 and in bf16; 64
+    samples of ``synthesize_multiview`` (4 views at 224², K1 held to its
+    plain version at that shape) through ``DeviceDataCache`` into 5a's
+    model and ``BenchmarkAccumulator``; ``bench_all`` configs 4,
+    5a and 5b (18 views, the mouse-width spec) with short windows; and a
+    profile of config 4 at B=128 in bf16: the device's busy share, the top
+    operations, the FLOPs its layers' shapes give and the ``mfu`` against
+    989 TFLOP/s (H100 SXM dense bf16).
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after. Imports nothing of JAX or of the JAX package ``smilify_tpu``.
@@ -121,6 +135,20 @@ DATA_SAMPLES = 1600
 DATA_VIEWS, DATA_RES, DATA_CHUNK = 4, 96, 32
 DATA_BATCH = 32
 DATA_HDF5_SAMPLES = 200
+# phase 11, neural serving: configs 4/5a at 224² on B=2 for the card-vs-CPU
+# check; run_inference on 16 frames; 64 multi-view samples in batches of 8;
+# config 4's profile at B=128
+SERVE_RES, SERVE_B, SERVE_FRAMES = 224, 2, 16
+SERVE_MV_SAMPLES, SERVE_MV_VIEWS, SERVE_MV_BATCH, SERVE_MV_CHUNK = 64, 4, 8, 32
+PROFILE_B, PROFILE_STEPS = 128, 3
+PEAK_BF16_PER_S = 989e12   # H100 SXM dense bf16 tensor-core peak
+# the card against the CPU, both float32 with TF32 off: max |Δ| over the
+# decoded predictions and the raw IEF history, relative to max(1, max |CPU|)
+# (measured on the H100: 2.4e-6 for config 4, 4.0e-6 for 5a)
+SERVE_FP32_TOL = 2e-5
+# bf16 autocast of the backbone against float32 on the card, the same measure
+# (measured: 1.0e-2 and 1.5e-2)
+SERVE_BF16_TOL = 0.1
 
 
 def log(msg):
@@ -951,36 +979,40 @@ def registration_phase(toy, dev, card):
     log(f"  bench_all config2 (1 target, 3000 samples): {json.dumps(res)} ({card})")
     check(math.isfinite(res["step_ms"]) and res["step_ms"] > 0, "config2: step_ms not positive")
 
-def data_k1_phase(spec, dev):
-    """K1 against its plain version at the shape the data pipeline launches
-    it: the first (view, chunk) of :func:`data_phase`'s run, DATA_CHUNK
-    frames at DATA_RES², made as ``synthesize_multiview`` makes them. Phase
-    2's gates (alpha within ALPHA_ATOL, ``work`` equal tile by tile); timed
-    over TIMING_WINDOWS windows. Returns (record, plain alpha (C, H, W))."""
+def data_k1_phase(spec, dev, images, n_views, res, chunk, where):
+    """K1 against its plain version at a shape the data pipeline launches
+    it: the first (view, chunk) of a ``synthesize_multiview`` run over
+    ``len(images)`` samples of ``n_views`` views at ``res``², chunks of
+    ``chunk`` (parameters and camera made as it makes them). Phase 2's gates
+    (alpha within ALPHA_ATOL, ``work`` equal tile by tile); timed over
+    TIMING_WINDOWS windows. Then that chunk's view-0 ``images`` (the run's
+    (N, views, res, res, 3) uint8 output) against the plain version's alpha,
+    coloured and quantized as the generator does: within one level. Returns
+    K1's record at that shape."""
     from smilify_tpu_torch.core.lbs import smil_forward
     from smilify_tpu_torch.data import synthetic as S
     from smilify_tpu_torch.render import rasterizer as R
     from smilify_tpu_torch.render._kernels import FWD_OPS_PER_PAIR
 
-    betas, grot, jrot, _ = S.draw_parameters(spec, DATA_SAMPLES)
-    theta = np.concatenate([grot[:, None], jrot], axis=1)[:DATA_CHUNK]
+    C = min(chunk, len(images))
+    betas, grot, jrot, _ = S.draw_parameters(spec, len(images))
+    theta = np.concatenate([grot[:, None], jrot], axis=1)[:C]
     with torch.no_grad():
-        verts = smil_forward(spec, torch.from_numpy(betas[:DATA_CHUNK]).to(dev),
+        verts = smil_forward(spec, torch.from_numpy(betas[:C]).to(dev),
                              torch.from_numpy(theta).to(dev)).verts
-        ndc = S.view_ndc(verts, *S.ring_cameras_opencv(DATA_VIEWS, resolution=DATA_RES)[0],
-                         DATA_RES)
+        ndc = S.view_ndc(verts, *S.ring_cameras_opencv(n_views, resolution=res)[0], res)
     tri = ndc[:, spec.faces.long()]
     valid = torch.any(tri[..., 2] > S.ZNEAR, dim=-1)
-    H = W = DATA_RES
+    H = W = res
     face, mask = R._pack_faces(tri[..., :2], valid), R._tile_cull_mask(tri[..., :2], valid,
                                                                       H, W, R.SIGMA)
     T = R._tile_grid(H, W)[2]
-    work = torch.full((DATA_CHUNK * T,), -1, dtype=torch.int32, device=dev)
+    work = torch.full((C * T,), -1, dtype=torch.int32, device=dev)
     expect = torch.empty_like(work)
     out = R.exact_fwd(face, mask, H, W, R.SIGMA, work=work)
     ref = R.exact_fwd_plain(face, mask, H, W, R.SIGMA, work=expect)
     torch.cuda.synchronize()
-    at = f"N={DATA_CHUNK}, {H}x{W}, the data pipeline's first (view, chunk)"
+    at = f"N={C}, {H}x{W}, {where}'s first (view, chunk)"
     check(bool(torch.isfinite(out).all()), f"exact_fwd: non-finite output ({at})")
     check(float(out.max()) > 1.0, f"exact_fwd: the mesh covers no pixel ({at})")
     err = float((torch.exp(-ref) - torch.exp(-out)).abs().max())
@@ -993,13 +1025,18 @@ def data_k1_phase(spec, dev):
     ms, spread = cuda_ms_windows(lambda: R.exact_fwd(face, mask, H, W, R.SIGMA), reps=20)
     plain_ms = cuda_ms(lambda: R.exact_fwd_plain(face, mask, H, W, R.SIGMA), reps=2, warmup=1)
     b_ms, b_by = bound(nbytes(face, mask, out), pairs * FWD_OPS_PER_PAIR)
-    log(f"  {at} exact_fwd: max abs err {err:.3g}, pairs {pairs}, subgroups as the plain "
-        f"version's in every tile; {err_line(err_at)}; {ms:.4f} ms (median of "
-        f"{TIMING_WINDOWS} windows, {spread[0]:.4f}-{spread[1]:.4f}; plain {plain_ms:.2f} ms, "
-        f"bound {b_ms:.4f} ms by {b_by})")
-    rec = {"frames": DATA_CHUNK, "size": [H, W], "max_abs_err": err, "err_at": err_at,
-           "ms": ms, "ms_spread": spread, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
-    return rec, 1.0 - torch.exp(-R._tiles_to_image(ref, H, W))
+    log(f"  {at} exact_fwd: max abs err {err:.3g} (gate {ALPHA_ATOL:g}), pairs {pairs}, "
+        f"subgroups as the plain version's in every tile; {err_line(err_at)}; {ms:.4f} ms "
+        f"(median of {TIMING_WINDOWS} windows, {spread[0]:.4f}-{spread[1]:.4f}; plain "
+        f"{plain_ms:.2f} ms, bound {b_ms:.4f} ms by {b_by})")
+    alpha = 1.0 - torch.exp(-R._tiles_to_image(ref, H, W))
+    colour = torch.tensor(S.SILHOUETTE_RGB, dtype=torch.float32, device=dev)
+    plain_img = (alpha[..., None] * colour * 255).to(torch.uint8).cpu().numpy()
+    diff = np.abs(images[:C, 0].astype(int) - plain_img.astype(int)).max()
+    log(f"  {where}: the first chunk's view-0 images within {diff} level(s) of the plain version's")
+    check(diff <= 1, f"{where}: images differ from the plain raster's by more than 1")
+    return {"frames": C, "size": [H, W], "max_abs_err": err, "err_at": err_at,
+            "ms": ms, "ms_spread": spread, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
 
 
 def data_phase(toy, dev, card):
@@ -1077,20 +1114,14 @@ def data_phase(toy, dev, card):
     else:
         log("  profile: the profiler recorded no device events; K1's share not measured")
 
-    rec, alpha = data_k1_phase(spec, dev)
+    rec = data_k1_phase(spec, dev, images, DATA_VIEWS, DATA_RES, DATA_CHUNK,
+                        "the data pipeline")
     rec["launches"] = counts["exact_fwd"]
     rec["samples_per_s"] = DATA_SAMPLES / seconds
     rec["profiled_wall_ms"] = prof_s * 1e3
     rec["k1_device_ms"] = k1_us / 1e3 if by_name else None
     rec["k1_share_of_wall"] = k1_us / 1e3 / (prof_s * 1e3) if by_name else None
     rec["device_busy_ms"] = busy_ms if by_name else None
-    # the first (view, chunk)'s images against the plain version's alpha,
-    # coloured and quantized as the generator does: within one level
-    colour = torch.tensor(S.SILHOUETTE_RGB, dtype=torch.float32, device=dev)
-    plain_img = (alpha[..., None] * colour * 255).to(torch.uint8).cpu().numpy()
-    diff = np.abs(images[:DATA_CHUNK, 0].astype(int) - plain_img.astype(int)).max()
-    log(f"  the first chunk's view-0 images within {diff} level(s) of the plain version's")
-    check(diff <= 1, "synthesize_multiview: images differ from the plain raster's by more than 1")
 
     t0 = time.perf_counter()
     cache = DeviceDataCache(samples, device=dev)
@@ -1157,6 +1188,350 @@ def data_phase(toy, dev, card):
     return rec
 
 
+def perturb_zero_params(model, seed=0, std=0.02):
+    """Draw every all-zero parameter (the delta heads' and camera heads'
+    zero-initialized kernels, zero biases) from N(0, std²) with ``seed``, so
+    that the outputs depend on the images and a comparison of two runs
+    compares something."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            if not bool(p.any()):
+                p.copy_(torch.randn(p.shape, generator=gen) * std)
+    return model
+
+
+def _max_rel_gap(a: dict, b: dict) -> float:
+    """max over keys of max |a − b| / max(1, max |b|)."""
+    gap = 0.0
+    for k in b:
+        x, y = a[k].float().cpu(), b[k].float().cpu()
+        gap = max(gap, float((x - y).abs().max()) / max(1.0, float(y.abs().max())))
+    return gap
+
+
+def _serve_outputs(model, cfg, spec, inputs, multiview):
+    """{decoded predictions, the raw IEF history as history_i} of one call."""
+    from smilify_tpu_torch.models.multiview import decode_multiview_predictions
+    from smilify_tpu_torch.models.regressor import decode_predictions, float32_region
+
+    with torch.no_grad():
+        raw, hist = model(*inputs)
+        with float32_region(inputs[0].device):
+            dec = (decode_multiview_predictions if multiview else decode_predictions)(cfg, raw, spec)
+    dec.update({f"history_{i}": h for i, h in enumerate(hist)})
+    return dec
+
+
+def serving_parity(toy, dev):
+    """Configs 4 and 5a (STICK width, 224², seeded weights): the card in
+    float32 (TF32 off) against the same model on the CPU, and bf16 autocast
+    against float32 on the card; 5a's second sample has every view masked."""
+    import copy
+    import dataclasses
+
+    from smilify_tpu_torch.tools import bench_all
+
+    cpu_spec = toy.to("cpu")
+    rng = np.random.default_rng(11)
+    gaps = {}
+    for label, multiview in (("config4", False), ("config5a", True)):
+        if multiview:
+            cfg, model = bench_all.multiview_model(toy, SERVE_MV_VIEWS, SERVE_RES, torch.float32)
+            perturb_zero_params(model)
+            imgs = rng.random((SERVE_B, SERVE_MV_VIEWS, SERVE_RES, SERVE_RES, 3), dtype=np.float32)
+            mask = np.ones((SERVE_B, SERVE_MV_VIEWS), bool)
+            mask[1] = False
+            host = (torch.from_numpy(imgs), torch.from_numpy(mask),
+                    torch.arange(SERVE_MV_VIEWS).expand(SERVE_B, SERVE_MV_VIEWS))
+        else:
+            cfg, model = bench_all.singleview_model(toy, SERVE_RES, torch.float32)
+            perturb_zero_params(model)
+            host = (torch.from_numpy(rng.random((SERVE_B, SERVE_RES, SERVE_RES, 3), dtype=np.float32)),)
+        cpu_model = copy.deepcopy(model).cpu().to(memory_format=torch.contiguous_format)
+        card = _serve_outputs(model, cfg, toy, tuple(x.to(dev) for x in host), multiview)
+        cpu = _serve_outputs(cpu_model, cfg, cpu_spec, host, multiview)
+        gap = _max_rel_gap(card, cpu)
+        model.config = dataclasses.replace(cfg, compute_dtype=torch.bfloat16)
+        bf16 = _serve_outputs(model, model.config, toy, tuple(x.to(dev) for x in host), multiview)
+        gap16 = _max_rel_gap(bf16, card)
+        worst = max(card, key=lambda k: float((card[k].cpu() - cpu[k]).abs().max()))
+        log(f"  {label}: card vs CPU float32 max |Δ| / max(1, |CPU|) = {gap:.3e} (worst in "
+            f"{worst}; tolerance {SERVE_FP32_TOL:g}, headroom {SERVE_FP32_TOL / max(gap, 1e-30):.1f}x); "
+            f"bf16 autocast vs float32 on the card {gap16:.3e} (bound {SERVE_BF16_TOL:g})")
+        for out in (card, bf16):
+            check(all(bool(torch.isfinite(v).all()) for v in out.values()),
+                  f"{label}: non-finite outputs")
+        if multiview:
+            masked = {k: v[1] for k, v in card.items() if v.shape[0] == SERVE_B}
+            check(all(bool(torch.isfinite(v).all()) for v in masked.values()),
+                  f"{label}: the fully masked sample's outputs are not finite")
+            log(f"  {label}: the sample with every view masked gives finite outputs "
+                f"(global_rot {masked['global_rot'].cpu().numpy().round(4).tolist()})")
+        check(gap <= SERVE_FP32_TOL, f"{label}: card vs CPU gap {gap:.3e} > {SERVE_FP32_TOL}")
+        check(gap16 <= SERVE_BF16_TOL, f"{label}: bf16 gap {gap16:.3e} > {SERVE_BF16_TOL}")
+        gaps[label] = {"fp32_card_vs_cpu": gap, "bf16_vs_fp32": gap16}
+    return gaps
+
+
+def serving_cli(toy, dev, work):
+    """run_inference on SERVE_FRAMES replicAnt frames at 224² from a
+    checkpoint that save_checkpoint wrote (a config-4-shaped regressor, bf16
+    backbone): predictions.npz against a direct model call on the same
+    frames, smoothed the same way; the animation and the PNGs."""
+    import copy
+    import dataclasses
+
+    from smilify_tpu_torch.cli import run_inference
+    from smilify_tpu_torch.cli.train_regressor import build_dataset
+    from smilify_tpu_torch.models.weight_port import build_model
+    from smilify_tpu_torch.tools.synthetic_data import write_model_pkl, write_replicant_sequence
+    from smilify_tpu_torch.train.config import load_config, resolve_model_spec
+    from smilify_tpu_torch.train.trainer import TrainState, save_checkpoint
+    from smilify_tpu_torch.utils.animation_export import PredictionSmoother
+
+    pkl = write_model_pkl(str(work / "stick_width.pkl"), toy)
+    folder, _ = write_replicant_sequence(str(work / "seq"), toy, SERVE_FRAMES, SERVE_RES,
+                                         layout="unreal")
+    cfg = load_config(None, overrides={
+        "smal_model.smal_file": pkl, "model.backbone_name": "resnet50",
+        "model.input_resolution": SERVE_RES, "model.transformer_depth": 4,
+        "model.transformer_heads": 8, "model.transformer_dim_head": 32,
+        "model.transformer_mlp_dim": 1024, "model.transformer_ief_iters": 3,
+        "training.use_mixed_precision": True}, mode="single_view")
+    spec = resolve_model_spec(cfg, device=dev)
+    rcfg = cfg.regressor_config(spec)
+    torch.manual_seed(0)
+    model = perturb_zero_params(build_model(rcfg, img_size=SERVE_RES))
+    ckpt = save_checkpoint(str(work / "run"), TrainState(model.state_dict()), cfg, "final_model")
+    model = model.to(dev).eval().to(memory_format=torch.channels_last)
+
+    zero_counts()
+    t0 = time.perf_counter()
+    traj = run_inference.main(["--checkpoint", ckpt, "--data-path", folder, "--smooth-window", "3",
+                               "--export-animation", str(work / "anim"),
+                               "--render-dir", str(work / "frames"), "--device", dev.type])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    cfg.dataset.data_path = folder
+    dataset, _ = build_dataset(cfg, spec)
+    imgs = torch.from_numpy(np.stack([dataset[i]["image"] for i in range(SERVE_FRAMES)])).to(dev)
+    # in run_inference's batches of 8: bf16 convolutions of another batch size
+    # round differently (the bf16 gap of serving_parity)
+    predict = run_inference.predictor(model, rcfg, spec, False)
+    parts = [predict({"image": imgs[i:i + 8]}) for i in range(0, SERVE_FRAMES, 8)]
+    direct = {k: torch.cat([p[k] for p in parts]).cpu().numpy() for k in parts[0]}
+    keys = [k for k in ("global_rot", "joint_rot", "trans", "betas", "fov", "cam_rot", "cam_trans")
+            if k in direct]
+    direct = PredictionSmoother(3).smooth_params(direct, keys)
+    saved = dict(np.load(work / "run" / "predictions.npz"))
+    gap = max(float(np.abs(saved[k] - direct[k]).max()) / max(1.0, float(np.abs(direct[k]).max()))
+              for k in direct)
+    pngs = sorted(p.name for p in (work / "frames").glob("frame_*.png"))
+    log(f"  run_inference: {SERVE_FRAMES} frames at {SERVE_RES}² (bf16 backbone), smoothed, "
+        f"animation and renders on {spec.device}, {secs:.2f} s; predictions.npz against a direct "
+        f"call on the same frames: max |Δ| / max(1, |direct|) {gap:.3e}; "
+        f"{len(pngs)} PNGs; kernel launches {counts}")
+    check(sorted(saved) == sorted(direct) and sorted(traj) == sorted(direct),
+          "run_inference: predictions.npz keys differ")
+    check(gap <= SERVE_FP32_TOL, f"run_inference: predictions.npz differs from a direct call "
+                                 f"by {gap:.3e}")
+    check(len(pngs) == SERVE_FRAMES, f"run_inference: {len(pngs)} PNGs, expected {SERVE_FRAMES}")
+    check((work / "anim.npz").exists() and (work / "anim.json").exists(),
+          "run_inference: no animation file")
+    check(spec.device.type == "cuda", "run_inference: not on the card")
+
+    # the witness for the batching above: the same model on the same frames in
+    # one batch of SERVE_FRAMES against run_inference's batches of 8, in bf16
+    # autocast and in float32 (TF32 off), and bf16 against float32 in batches
+    # of 8, on the card and on the CPU. Rounding may move bf16 with the
+    # batch's shape; float32 must agree to SERVE_FP32_TOL, or the batch size
+    # changes the result (a bug)
+    def decoded(m, sp, x, dtype, step):
+        m.config = dataclasses.replace(rcfg, compute_dtype=dtype)
+        pred = run_inference.predictor(m, m.config, sp, False)
+        parts = [pred({"image": x[i:i + step]}) for i in range(0, SERVE_FRAMES, step)]
+        m.config = rcfg
+        return {k: torch.cat([p[k] for p in parts]).cpu() for k in parts[0]}
+
+    def by_key(a, b):
+        return {k: float((a[k] - b[k]).abs().max()) / max(1.0, float(b[k].abs().max())) for k in b}
+
+    def pooled_gap(m, x):
+        with torch.no_grad():
+            ref = m.backbone(x[:8]).pooled.float()
+            with torch.autocast(x.device.type, dtype=torch.bfloat16):
+                low = m.backbone(x[:8]).pooled.float()
+        return float((low - ref).abs().max()) / float(ref.abs().max())
+
+    out = {dtype: {step: decoded(model, spec, imgs, dtype, step) for step in (SERVE_FRAMES, 8)}
+           for dtype in (torch.bfloat16, torch.float32)}
+    batch_bf16 = _max_rel_gap(out[torch.bfloat16][SERVE_FRAMES], out[torch.bfloat16][8])
+    batch_fp32 = _max_rel_gap(out[torch.float32][SERVE_FRAMES], out[torch.float32][8])
+    bf16_fp32 = _max_rel_gap(out[torch.bfloat16][8], out[torch.float32][8])
+    cpu_model = copy.deepcopy(model).cpu().to(memory_format=torch.contiguous_format)
+    cpu_spec, cpu_imgs = spec.to("cpu"), imgs.cpu()
+    cpu = {dtype: decoded(cpu_model, cpu_spec, cpu_imgs, dtype, 8)
+           for dtype in (torch.bfloat16, torch.float32)}
+    cpu_bf16_fp32 = _max_rel_gap(cpu[torch.bfloat16], cpu[torch.float32])
+    fp32_card_cpu = _max_rel_gap(out[torch.float32][8], cpu[torch.float32])
+    keys = {k: (f"{v:.2e}", f"{c:.2e}") for (k, v), c in zip(
+        by_key(out[torch.bfloat16][8], out[torch.float32][8]).items(),
+        by_key(cpu[torch.bfloat16], cpu[torch.float32]).values())}
+    log(f"  the checkpoint's model on these frames, one batch of {SERVE_FRAMES} against batches "
+        f"of 8 (max |Δ| / max(1, |8s|)): bf16 {batch_bf16:.3e}, float32 {batch_fp32:.3e} "
+        f"(tolerance {SERVE_FP32_TOL:g}); bf16 against float32 in batches of 8: card "
+        f"{bf16_fp32:.3e}, CPU {cpu_bf16_fp32:.3e}, by key (card, CPU) {keys}; backbone's "
+        f"pooled features, bf16 against float32, max |Δ| / max |float32|: card "
+        f"{pooled_gap(model, imgs):.3e}, CPU {pooled_gap(cpu_model, cpu_imgs):.3e}; float32 card "
+        f"against CPU {fp32_card_cpu:.3e}")
+    check(batch_fp32 <= SERVE_FP32_TOL, f"run_inference's model: float32 in one batch of "
+                                        f"{SERVE_FRAMES} differs from batches of 8 by {batch_fp32:.3e}")
+    check(batch_bf16 <= SERVE_BF16_TOL, f"run_inference's model: bf16 batch gap {batch_bf16:.3e}")
+    check(fp32_card_cpu <= SERVE_FP32_TOL, f"run_inference's model: float32 card against CPU "
+                                           f"{fp32_card_cpu:.3e}")
+    return {"seconds": secs, "frames_per_s": SERVE_FRAMES / secs, "npz_vs_direct": gap,
+            "batch16_vs_8_bf16": batch_bf16, "batch16_vs_8_fp32": batch_fp32,
+            "bf16_vs_fp32_batch8": bf16_fp32, "cpu_bf16_vs_fp32_batch8": cpu_bf16_fp32,
+            "fp32_card_vs_cpu": fp32_card_cpu}
+
+
+def serving_multiview_data(toy, dev):
+    """SERVE_MV_SAMPLES samples of synthesize_multiview at 224² (K1 counted,
+    and held to its plain version at that shape) through DeviceDataCache
+    batches into 5a's model, then BenchmarkAccumulator."""
+    from smilify_tpu_torch.data.synthetic import synthesize_multiview
+    from smilify_tpu_torch.models.multiview import (
+        decode_multiview_predictions,
+        project_through_view_cameras,
+    )
+    from smilify_tpu_torch.models.regressor import float32_region, forward_model
+    from smilify_tpu_torch.tools import bench_all
+    from smilify_tpu_torch.train.benchmark import BenchmarkAccumulator
+    from smilify_tpu_torch.train.trainer import DeviceDataCache
+
+    zero_counts()
+    samples = synthesize_multiview(toy, SERVE_MV_SAMPLES, SERVE_MV_VIEWS, SERVE_RES,
+                                   chunk_size=SERVE_MV_CHUNK, device=dev)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    n_k1 = SERVE_MV_VIEWS * math.ceil(SERVE_MV_SAMPLES / SERVE_MV_CHUNK)
+    check(counts["exact_fwd"] == n_k1, f"synthesize_multiview at {SERVE_RES}²: K1 launched "
+                                       f"{counts['exact_fwd']} times, expected {n_k1}")
+    k1 = data_k1_phase(toy, dev, np.stack([s["images"] for s in samples]), SERVE_MV_VIEWS,
+                       SERVE_RES, SERVE_MV_CHUNK, "multi-view serving")
+    k1["launches"] = counts["exact_fwd"]
+    cache = DeviceDataCache(samples, device=dev)
+    cfg, model = bench_all.multiview_model(toy, SERVE_MV_VIEWS, SERVE_RES)
+    perturb_zero_params(model)
+    acc = BenchmarkAccumulator()
+    vm = torch.ones((SERVE_MV_BATCH, SERVE_MV_VIEWS), dtype=torch.bool, device=dev)
+    cids = torch.arange(SERVE_MV_VIEWS, device=dev).expand(SERVE_MV_BATCH, SERVE_MV_VIEWS)
+    zero_counts()
+    t0 = time.perf_counter()
+    n = 0
+    with torch.no_grad():
+        for batch in cache.iterate(SERVE_MV_BATCH, np.random.default_rng(0), shuffle=False):
+            raw, _ = model(batch["images"], vm, cids)
+            with float32_region(dev):
+                preds = decode_multiview_predictions(cfg, raw, toy)
+                _, joints3d = forward_model(toy, preds)
+                kp2d = project_through_view_cameras(preds, joints3d, (SERVE_RES, SERVE_RES))
+            gt2d = batch["keypoints_2d"].flip(-1).cpu().numpy() / SERVE_RES   # (x, y) px → (y, x)
+            acc.add_2d(kp2d.cpu().numpy(), gt2d, batch["keypoint_visibility"].cpu().numpy(), SERVE_RES)
+            acc.add_3d(joints3d.cpu().numpy(), batch["keypoints_3d"].cpu().numpy())
+            n += batch["images"].shape[0]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    after = read_counts()
+    curve, stats = acc.pck_curve("input"), acc.mpjpe_stats()
+    n_2d = int(sum(e.size for e in acc.pixel_errors_input))
+    log(f"  multi-view serving: {n} samples × {SERVE_MV_VIEWS} views at {SERVE_RES}² from "
+        f"DeviceDataCache ({cache.bytes} bytes) in {secs:.3f} s = {n / secs:.1f} frames/s; "
+        f"K1 launches in synthesize_multiview {counts['exact_fwd']}, in serving {after}; "
+        f"PCK@10 {curve.get(10)}, PCK@50 {curve.get(50)} over {n_2d} visible keypoints; "
+        f"MPJPE {stats}")
+    check(n == SERVE_MV_SAMPLES, f"multi-view serving: {n} samples")
+    check(n_2d > 0 and all(math.isfinite(v) for v in curve.values()), "multi-view serving: PCK")
+    check(stats.get("n", 0) > 0 and all(math.isfinite(v) for v in stats.values()),
+          "multi-view serving: MPJPE not finite")
+    return {"k1": k1, "frames_per_s": n / secs}
+
+
+def serving_bench_and_profile(spec, dev, card):
+    """bench_all configs 4, 5a, 5b with short windows; then config 4 at
+    B=PROFILE_B in bf16 under the profiler: busy share, top operations, the
+    FLOPs its layers' shapes give and the mfu."""
+    from smilify_tpu_torch.models.regressor import decode_predictions, float32_region
+    from smilify_tpu_torch.tools import bench_all
+
+    report = bench_all.run(spec, only=["config4", "config5a", "config5b"], repeats=1, target_s=0.5)
+    for key, res in report.items():
+        log(f"  bench_all {key}: " + json.dumps(res))
+        check(all(v > 0 and math.isfinite(v) for k, v in res.items()
+                  if k.endswith(("_ms", "_per_sec"))), f"bench_all {key}: a rate is not positive")
+    c4, c5a, c5b = (report[k] for k in ("config4_singleview_resnet50",
+                                        "config5a_multiview_4cam_stick",
+                                        "config5b_multiview_18cam_mouse"))
+    log(f"  serving rates ({card}): config4 {c4['batch8_images_per_sec']:.1f} images/s at B=8, "
+        f"{c4['batch128_images_per_sec']:.1f} at B=128; config5a {c5a['stick4_b1_frames_per_sec']:.1f} "
+        f"/ {c5a['stick4_b8_frames_per_sec']:.1f} frames/s at B=1 / 8; config5b "
+        f"{c5b['mouse18_b1_frames_per_sec']:.1f} / {c5b['mouse18_b8_frames_per_sec']:.1f}")
+
+    cfg, model = bench_all.singleview_model(spec, SERVE_RES)
+    imgs = torch.rand(PROFILE_B, SERVE_RES, SERVE_RES, 3, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(0))
+
+    @torch.no_grad()
+    def step():
+        raw, _ = model(imgs)
+        with float32_region(dev):
+            return decode_predictions(cfg, raw, spec)
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PROFILE_STEPS):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
+    by_name = device_ops(lambda: [step() for _ in range(PROFILE_STEPS)], host=False)
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        flops = bench_all.count_flops(model.backbone, imgs) + bench_all.count_flops(
+            model.head, model.backbone(imgs).tokens.float())
+    mfu = flops / (wall_ms / 1e3) / PEAK_BF16_PER_S
+    out = {"wall_ms": wall_ms, "flops": flops, "mfu": mfu}
+    if by_name:
+        busy_ms = sum(us for us, _ in by_name.values()) / 1e3 / PROFILE_STEPS
+        out.update(device_busy_ms=busy_ms, busy_share=busy_ms / wall_ms)
+        log(f"  config4 at B={PROFILE_B}, bf16: wall {wall_ms:.3f} ms a batch (unprofiled), device "
+            f"busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), "
+            f"{sum(n for _, n in by_name.values()) / PROFILE_STEPS:.0f} device operations")
+        log_device_ops(by_name, PROFILE_STEPS, 10)
+    else:
+        log("  profile: the profiler recorded no device events; busy share not measured")
+    log(f"  config4 at B={PROFILE_B}: {flops / 1e9:.1f} GFLOP a batch (forward hooks), "
+        f"{flops / (wall_ms / 1e3) / 1e12:.1f} TFLOP/s")
+    log(f"mfu {mfu:.4f} (config4, B={PROFILE_B}, bf16, against {PEAK_BF16_PER_S / 1e12:.0f} "
+        f"TFLOP/s dense bf16; {card})")
+    check(0 < mfu < 1, f"config4: mfu {mfu} out of range")
+    return {"config4": c4, "config5a": c5a, "config5b": c5b, "profile": out}
+
+
+def serving_phase(toy, dev, card):
+    """Phase 11: neural serving at full width (see the module docstring)."""
+    work = ROOT / "build" / "smoke_serving"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    out = {"parity": serving_parity(toy, dev)}
+    out["run_inference"] = serving_cli(toy, dev, work)
+    out["multiview_data"] = serving_multiview_data(toy, dev)
+    out.update(serving_bench_and_profile(toy, dev, card))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs an NVIDIA GPU")
@@ -1179,7 +1554,7 @@ def main():
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
 
-    log("[1/10] build")
+    log("[1/11] build")
     t0 = time.perf_counter()
     libs = _kernels.build_all()
     log(f"  built {', '.join(p.name for p in libs.values())} in {time.perf_counter() - t0:.1f} s")
@@ -1199,7 +1574,7 @@ def main():
     spec, spec_name = load_spec(device=dev)
     log(f"  spec: {spec_name}, B={spec.n_betas}")
 
-    log("[2/10] kernels against their plain versions at the driven paths' shapes")
+    log("[2/11] kernels against their plain versions at the driven paths' shapes")
     shape = source_constants(RASTER_CU.read_text(), FWD_SHAPE + BWD_SHAPE)
     log(f"  launch shapes (csrc/raster.cu): {shape}")
     raster = ("exact_fwd", "exact_bwd", "worklist_fwd", "worklist_bwd")
@@ -1218,7 +1593,7 @@ def main():
     for n_frames, size in ((1, SIZE),) + shapes:
         kernel_phase(spec, n_frames, size, dev, saturating=True)
     records.append(peak_phase(dev))
-    log("[3/10] main path: SmalFitter, 4 stages × 10 steps, 1 frame at 512²")
+    log("[3/11] main path: SmalFitter, 4 stages × 10 steps, 1 frame at 512²")
     data = synthetic_fit_data(spec, 1, SIZE)
     cover = float(data.sil.mean())
     log(f"  target silhouette covers {cover:.4f} of the image")
@@ -1263,33 +1638,41 @@ def main():
     log(f"  IoU of capped (cap {cap}) against exact on the exact fit's pose: {iou_cap:.4f}")
     check(iou_cap >= 0.99, "capped raster IoU against exact below 0.99")
 
-    log("[4/10] references")
+    log("[4/11] references")
     reference_phase(spec, dev)
 
-    log("[5/10] where the time goes: 1 and 10 frames")
+    log("[5/11] where the time goes: 1 and 10 frames")
     data10 = synthetic_fit_data(spec, 10, SIZE)
     for frames, d in ((1, data), (10, data10)):
         for mode, (mode_cap, _) in modes.items():
             profile_phase(spec, d, dev, f"{mode}, {frames} frame(s),", mode_cap)
 
-    log("[6/10] bench path: bench, bench_all configs 1, 3, 3b, 3c (short windows)")
+    log("[6/11] bench path: bench, bench_all configs 1, 3, 3b, 3c (short windows)")
     bench_counts = bench_phase(spec, spec_name, dev)
     records[4]["launches"] = bench_counts["fma_peak"]
 
-    log("[7/10] batched and progressive fitters, bench_corpus")
+    log("[7/11] batched and progressive fitters, bench_corpus")
     batched_phase(spec, spec_name, dev)
 
-    log("[8/10] fitter CLIs: optimize_to_joints (capped, exact, texture), optimize_corpus at 512²")
+    log("[8/11] fitter CLIs: optimize_to_joints (capped, exact, texture), optimize_corpus at 512²")
     cli_phase(spec, dev, card)
 
-    log("[9/10] 3D registration: 8 targets, 2 stages; bench_all config2")
+    log("[9/11] 3D registration: 8 targets, 2 stages; bench_all config2")
     registration_phase(spec, dev, card)
 
-    log("[10/10] data pipeline: synthesize_multiview (1,600 samples, 4 views at 96²), "
+    log("[10/11] data pipeline: synthesize_multiview (1,600 samples, 4 views at 96²), "
         "DeviceDataCache, HDF5")
     t0 = time.perf_counter()
     records[0]["data_pipeline"] = data_phase(spec, dev, card)
     log(f"  phase 10: {time.perf_counter() - t0:.1f} s")
+
+    log("[11/11] neural serving: configs 4/5a card vs CPU, run_inference, multi-view serving, "
+        "bench_all configs 4/5a/5b, config 4's profile")
+    t0 = time.perf_counter()
+    serving = serving_phase(spec, dev, card)
+    log(f"  phase 11: {time.perf_counter() - t0:.1f} s")
+    records[0]["serving_data"] = serving["multiview_data"]["k1"]
+    log("serving " + json.dumps(serving))
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}), flush=True)

@@ -11,8 +11,12 @@ fitter   : the 2D keypoint + silhouette optimization fitter, and 3D registration
 ops      : kNN, mesh sampling and losses, SDF.
 data     : loaders, the HDF5 dataset schema, replicAnt/SLEAP inputs,
            augmentation, the synthetic multi-view generator.
-train    : the device-resident data cache.
-cli      : the fitter, registration and data command lines.
+models   : the regressors' backbones, IEF/MLP heads, single- and multi-view
+           regressors, their decode and losses, and weight carrying.
+train    : configs, checkpoints, staging, splits, the benchmark accumulator
+           and the device-resident data cache.
+cli      : the fitter, registration, data, inference and benchmark command
+           lines.
 
 Entry points take an explicit ``device`` that defaults to ``"cuda"`` and
 raise when CUDA is absent, unless the caller asks for ``device="cpu"``.

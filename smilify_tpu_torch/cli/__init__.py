@@ -1,1 +1,2 @@
-"""Command-line entry points: the fitter CLIs and 3D registration."""
+"""Command-line entry points: the fitter CLIs, 3D registration, the data
+tools, and the regressors' inference and benchmark."""

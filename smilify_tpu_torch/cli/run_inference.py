@@ -1,0 +1,264 @@
+"""Neural inference CLI, single- and multi-view (port of
+``smilify_tpu/cli/run_inference.py``).
+
+Loads a checkpoint and the config in its ``.meta.json``, predicts over a
+dataset (a replicAnt folder, an HDF5 store, or a raw video with the
+``default``/``centred``/``bbox_crop`` crop modes) in batches, optionally
+smooths the parameter trajectory, exports an AMASS-style animation and
+renders each frame (Phong, with the joints drawn; multi-view frames as a
+grid of the views) to PNGs. ``predictions.npz`` is written beside the
+checkpoint.
+
+Precision: the model's backbone runs under bf16 autocast when the config
+asks for mixed precision (``training.use_mixed_precision``); the heads, the
+decode, the SMIL forward and the projection run in float32 with TF32 off.
+
+Usage:
+  python -m smilify_tpu_torch.cli.run_inference --checkpoint runs/sv/final_model \\
+      --data-path <dir|h5|video> [--smooth-window 5] [--export-animation out.npz] \\
+      [--render-dir out_frames] [--device cuda]
+
+On the card's machine, replicAnt frames must be PNG files (their ``.JPG``
+names may hold PNG data) and HDF5 stores cannot be read (no h5py there).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+
+import numpy as np
+import torch
+
+from smilify_tpu_torch._device import resolve_device
+
+RENDER_CHUNK = 8   # single-view frames rendered between two host fetches
+LEFT_OUT = ("--video (an mp4 of the rendered frames) waits for utils/export.py::write_video, "
+            "which comes with the remaining tools; --shard (batches over several cards) waits "
+            "for the multi-device port.")
+
+
+def discover_checkpoint(path: str) -> str:
+    """Resolve a run directory to its best checkpoint: ``best_model`` first,
+    then ``final_model``, then the newest ``epoch_N``, in the run root and
+    then its ``checkpoints/``. A path that is already a checkpoint (has a
+    ``.meta.json`` beside it) is returned unchanged."""
+    if os.path.exists(path + ".meta.json"):
+        return path
+    if not os.path.isdir(path):
+        return path
+    for root in (path, os.path.join(path, "checkpoints")):
+        if not os.path.isdir(root):
+            continue
+        for name in ("best_model", "final_model"):
+            cand = os.path.join(root, name)
+            if os.path.exists(cand + ".meta.json"):
+                print(f"auto-discovered checkpoint: {cand}")
+                return cand
+        epochs = sorted(
+            (int(n.split("_")[1].split(".")[0]), n.split(".")[0]) for n in os.listdir(root)
+            if n.startswith("epoch_") and n.endswith(".meta.json")
+            and n.split("_")[1].split(".")[0].isdigit())
+        if epochs:
+            cand = os.path.join(root, epochs[-1][1])
+            print(f"auto-discovered checkpoint: {cand}")
+            return cand
+    return path
+
+
+def load_model_from_checkpoint(ckpt_path: str, device="cuda"):
+    """(model in eval mode on ``device``, TrainingConfig, regressor config,
+    ModelSpec on ``device``, meta) from a checkpoint or a run directory
+    (resolved by :func:`discover_checkpoint`)."""
+    from smilify_tpu_torch.models.weight_port import build_model
+    from smilify_tpu_torch.train.config import config_from_dict, resolve_model_spec
+    from smilify_tpu_torch.train.trainer import load_checkpoint
+
+    dev = resolve_device(device)
+    ckpt_path = discover_checkpoint(ckpt_path)
+    with open(ckpt_path + ".meta.json") as f:
+        meta = json.load(f)
+    cfg = config_from_dict(meta["config"])
+    spec = resolve_model_spec(cfg, device=dev)
+    rcfg = cfg.regressor_config(spec)
+    model = build_model(rcfg, img_size=cfg.model.input_resolution or 224)
+    payload, _ = load_checkpoint(ckpt_path)
+    model.load_state_dict(payload["model"])
+    model = model.to(dev).eval()
+    if dev.type == "cuda":
+        model = model.to(memory_format=torch.channels_last)
+    return model, cfg, rcfg, spec, meta
+
+
+def predictor(model, rcfg, spec, multiview: bool):
+    """``predict(batch)`` → decoded predictions for a batch of device
+    tensors (``image``, or ``images``/``view_mask``/``camera_indices``)."""
+    from smilify_tpu_torch.models.multiview import decode_multiview_predictions
+    from smilify_tpu_torch.models.regressor import decode_predictions, float32_region
+
+    @torch.no_grad()
+    def predict(batch):
+        if multiview:
+            raw, _ = model(batch["images"], batch["view_mask"], batch["camera_indices"])
+        else:
+            raw, _ = model(batch["image"])
+        with float32_region(spec.device):
+            if multiview:
+                return decode_multiview_predictions(rcfg, raw, spec)
+            return decode_predictions(rcfg, raw, spec)
+
+    return predict
+
+
+def render_frame(spec, vtx, j3d, R, T, fov, res):
+    """One frame through one camera: (uint8 (res, res, 3) Phong image, (K, 2)
+    (y, x) joints), both on the vertices' device."""
+    from smilify_tpu_torch.render.cameras import default_camera
+    from smilify_tpu_torch.render.phong import render_phong
+
+    cam = default_camera(device=vtx.device).replace(R=R, T=T, fov=fov)
+    pts_view = cam.world_to_view(vtx)
+    ndc = cam.view_to_ndc(pts_view)
+    verts_ndc = torch.cat([ndc[:, :2], pts_view[:, 2:3]], dim=1)
+    img = render_phong(vtx, pts_view, verts_ndc, spec.faces, (res, res))
+    kp = cam.project_points_yx(j3d, (res, res))
+    return (torch.clamp(img, 0.0, 1.0) * 255.0).to(torch.uint8), kp
+
+
+def render_frames(spec, rcfg, traj, res, render_dir, multiview: bool):
+    """Render every frame of ``traj`` (numpy predictions) to
+    ``render_dir/frame_%05d.png``: single-view frames RENDER_CHUNK at a time
+    (the last chunk's indices clamped to the last frame) with one host
+    fetch a chunk; multi-view frames view by view, tiled in rows of ≤ 4
+    views. Returns the frames' count."""
+    from smilify_tpu_torch.models.regressor import float32_region, forward_model
+    from smilify_tpu_torch.utils.image_io import write_png
+    from smilify_tpu_torch.utils.visualization import draw_joints
+
+    os.makedirs(render_dir, exist_ok=True)
+    dev = spec.device
+    preds = {k: torch.as_tensor(v, device=dev) for k, v in traj.items()}
+    n = preds["global_rot"].shape[0]
+    with torch.no_grad(), float32_region(dev):
+        verts, joints3d = forward_model(spec, preds, use_ue_scaling=rcfg.use_ue_scaling)
+        if multiview:
+            V = preds["view_fov"].shape[1]
+            for i in range(n):
+                views = [render_frame(spec, verts[i], joints3d[i], preds["view_cam_rot"][i, v],
+                                      preds["view_cam_trans"][i, v], preds["view_fov"][i, v], res)
+                         for v in range(V)]
+                imgs = torch.stack([u8 for u8, _ in views]).cpu().numpy()
+                kps = torch.stack([kp for _, kp in views]).cpu().numpy()
+                row = [draw_joints(imgs[v], kps[v]) for v in range(V)]
+                cols = min(4, V)
+                rows_n = -(-V // cols)
+                row += [np.zeros_like(row[0])] * (rows_n * cols - V)
+                grid = np.concatenate([np.concatenate(row[r * cols:(r + 1) * cols], axis=1)
+                                       for r in range(rows_n)], axis=0)
+                write_png(os.path.join(render_dir, f"frame_{i:05d}.png"), grid)
+            return n
+        C = max(1, min(RENDER_CHUNK, n))
+        for lo in range(0, n, C):
+            idx = [min(lo + j, n - 1) for j in range(C)]
+            out = [render_frame(spec, verts[i], joints3d[i], preds["cam_rot"][i],
+                                preds["cam_trans"][i], preds["fov"][i], res) for i in idx]
+            imgs = torch.stack([u8 for u8, _ in out]).cpu().numpy()
+            kps = torch.stack([kp for _, kp in out]).cpu().numpy()
+            for j in range(min(C, n - lo)):
+                write_png(os.path.join(render_dir, f"frame_{lo + j:05d}.png"),
+                          draw_joints(imgs[j], kps[j]))
+    return n
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="SMIL neural inference", epilog="Not ported yet: "
+                                 + LEFT_OUT)
+    ap.add_argument("--checkpoint", required=True)
+    ap.add_argument("--data-path", required=True)
+    ap.add_argument("--batch-size", type=int, default=8)
+    ap.add_argument("--smooth-window", type=int, default=0)
+    ap.add_argument("--export-animation", default=None)
+    ap.add_argument("--render-dir", default=None)
+    ap.add_argument("--max-frames", type=int, default=None)
+    ap.add_argument("--crop-mode", choices=["default", "centred", "bbox_crop"],
+                    default="default", help="raw-video input crop mode")
+    ap.add_argument("--sleap-predictions", default=None,
+                    help=".slp/.h5 predictions for bbox_crop + keypoint overlays")
+    ap.add_argument("--joint-lookup", default=None, help="sleap→model joint CSV")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    from smilify_tpu_torch.data.video import VideoFrameDataset
+    from smilify_tpu_torch.train.trainer import StagingCollator
+    from smilify_tpu_torch.utils.animation_export import AnimationRecorder, PredictionSmoother
+
+    dev = resolve_device(args.device)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    model, cfg, rcfg, spec, meta = load_model_from_checkpoint(args.checkpoint, dev)
+    res = cfg.model.input_resolution or 224
+
+    if args.data_path.lower().endswith(VideoFrameDataset.VIDEO_EXTS):
+        from smilify_tpu_torch.data.sleap_raw import read_joint_lookup_csv
+
+        dataset = VideoFrameDataset(
+            args.data_path, resolution=res, crop_mode=args.crop_mode,
+            sleap_predictions=args.sleap_predictions, joint_names=list(spec.joint_names),
+            joint_lookup=read_joint_lookup_csv(args.joint_lookup) if args.joint_lookup else None,
+            max_frames=args.max_frames,
+        )
+        kind = "raw_video"
+    else:
+        from smilify_tpu_torch.cli.train_regressor import build_dataset
+
+        cfg.dataset.data_path = args.data_path
+        dataset, kind = build_dataset(cfg, spec)
+    n = len(dataset) if args.max_frames is None else min(len(dataset), args.max_frames)
+    print(f"inference over {n} frames ({kind}) on {dev}")
+
+    is_mv = cfg.mode == "multi_view"
+    predict = predictor(model, rcfg, spec, is_mv)
+    staging = StagingCollator()
+    keys = ("images", "view_mask", "camera_indices") if is_mv else ("image",)
+    all_preds = []
+    for i in range(0, n, args.batch_size):
+        samples = [dataset[j] for j in range(i, min(n, i + args.batch_size))]
+        batch = staging.to_device(staging([{k: s[k] for k in keys} for s in samples]), dev)
+        preds = predict(batch)
+        all_preds.append({k: v.cpu().numpy() for k, v in preds.items()})
+    traj = {k: np.concatenate([p[k] for p in all_preds]) for k in all_preds[0]}
+
+    if args.smooth_window and args.smooth_window > 1:
+        smoother = PredictionSmoother(args.smooth_window)
+        smooth_keys = [k for k in ("global_rot", "joint_rot", "trans", "betas",
+                                   "fov", "cam_rot", "cam_trans",
+                                   "view_fov", "view_cam_rot", "view_cam_trans")
+                       if k in traj]
+        traj = smoother.smooth_params(traj, smooth_keys)
+        print(f"smoothed {smooth_keys} with window {args.smooth_window}")
+
+    if args.export_animation:
+        rec = AnimationRecorder(model_name=os.path.basename(spec.source_path))
+        for i in range(n):
+            rec.add_frame(
+                traj["global_rot"][i], traj["joint_rot"][i], traj["trans"][i],
+                betas=traj["betas"][i],
+                log_beta_scales=traj.get("log_beta_scales", [None] * n)[i],
+                betas_trans=traj.get("betas_trans", [None] * n)[i],
+            )
+        print(f"animation → {rec.export(args.export_animation)}")
+
+    if args.render_dir:
+        count = render_frames(spec, rcfg, traj, res, args.render_dir, is_mv)
+        print(f"{count} frames rendered on {dev} → {args.render_dir}")
+
+    out_npz = os.path.join(os.path.dirname(args.checkpoint) or ".", "predictions.npz")
+    np.savez(out_npz, **traj)
+    print(f"predictions → {out_npz}")
+    return traj
+
+
+if __name__ == "__main__":
+    main()

@@ -176,35 +176,38 @@ def triangulate_dlt(
     world-space points. Gradients flow to both the 2D points and the camera
     matrices.
 
+    Leading batch axes are solved in one call (the JAX package's
+    ``jax.vmap`` of the same function).
+
     Args:
-      points_2d_ndc: (V_views, K, 2) per-view NDC xy coordinates.
-      proj_matrices: (V_views, 4, 4) column-vector world→clip matrices.
-      view_mask: (V_views,) or (V_views, K) boolean/float validity.
+      points_2d_ndc: (..., V_views, K, 2) per-view NDC xy coordinates.
+      proj_matrices: (..., V_views, 4, 4) column-vector world→clip matrices.
+      view_mask: (..., V_views) or (..., V_views, K) boolean/float validity.
       damping: Tikhonov λ added to AᵀA.
 
     Returns:
-      (K, 3) triangulated world points.
+      (..., K, 3) triangulated world points.
     """
-    Vn, K_j = points_2d_ndc.shape[0], points_2d_ndc.shape[1]
-    if view_mask.ndim == 1:
-        view_mask = view_mask[:, None].expand(Vn, K_j)
-    w = view_mask.to(points_2d_ndc.dtype)                     # (V, K)
+    K_j = points_2d_ndc.shape[-2]
+    if view_mask.ndim == points_2d_ndc.ndim - 2:
+        view_mask = view_mask[..., None].expand(*view_mask.shape, K_j)
+    w = view_mask.to(points_2d_ndc.dtype)                     # (..., V, K)
 
-    P1 = proj_matrices[:, 0, :]                                 # (V, 4)
-    P2 = proj_matrices[:, 1, :]
-    P4 = proj_matrices[:, 3, :]
-    x = points_2d_ndc[..., 0]                                   # (V, K)
+    P1 = proj_matrices[..., 0, :]                               # (..., V, 4)
+    P2 = proj_matrices[..., 1, :]
+    P4 = proj_matrices[..., 3, :]
+    x = points_2d_ndc[..., 0]                                   # (..., V, K)
     y = points_2d_ndc[..., 1]
 
-    rows_x = x[..., None] * P4[:, None, :] - P1[:, None, :]    # (V, K, 4)
-    rows_y = y[..., None] * P4[:, None, :] - P2[:, None, :]
-    A = torch.cat([rows_x * w[..., None], rows_y * w[..., None]], dim=0)   # (2V, K, 4)
-    A = A.transpose(0, 1)                                       # (K, 2V, 4)
+    rows_x = x[..., None] * P4[..., None, :] - P1[..., None, :]    # (..., V, K, 4)
+    rows_y = y[..., None] * P4[..., None, :] - P2[..., None, :]
+    A = torch.cat([rows_x * w[..., None], rows_y * w[..., None]], dim=-3)   # (..., 2V, K, 4)
+    A = A.transpose(-3, -2)                                     # (..., K, 2V, 4)
 
     # homogeneous solve: split A = [M | b] with X_h = (X, 1)
     M = A[..., :3]
     b = -A[..., 3]
     eye = torch.eye(3, dtype=A.dtype, device=A.device)
-    AtA = torch.einsum("kva,kvb->kab", M, M) + damping * eye
-    Atb = torch.einsum("kva,kv->ka", M, b)
+    AtA = torch.einsum("...kva,...kvb->...kab", M, M) + damping * eye
+    Atb = torch.einsum("...kva,...kv->...ka", M, b)
     return torch.linalg.solve(AtA, Atb[..., None])[..., 0]

@@ -1,4 +1,4 @@
-"""The fitter configs of ``tools/bench_all.py`` on the card (port).
+"""The configs of ``tools/bench_all.py`` on the card (port).
 
     python -m smilify_tpu_torch.tools.bench_all [--only config3 ...] [--model PKL]
         [--target-obj OBJ] [--out build/bench_all.json] [--device cuda]
@@ -13,11 +13,22 @@ Configs:
   config3c_smalfitter_512_window10_worklist    10 frames, work-list raster capped at 800,
                                                plus the capped raster's IoU against exact
   config3d_smalfitter_512_window10_worklist700 10 frames, cap 700, plus IoU
+  config4_singleview_resnet50                  single-view serving: ResNet-50 + IEF head
+                                               (decoder 256 wide, 4 deep, 3 iterations) at
+                                               224², batches 8 and 128; images_per_sec at 128
+  config5a_multiview_4cam_stick                multi-view serving, 4 views at 224², B = 1
+                                               and 8: model, decode, SMIL forward, the
+                                               projection and the DLT re-triangulation
+  config5b_multiview_18cam_mouse               the same at 18 views on the mouse-width spec
 
 The fitter configs share one measurement of the card's FP32 FMA peak (K5,
 ``tools/peak.py``), the denominator of ``raster_work_bound_over_peak_pct``.
-Not ported yet: configs 4, 4b, 4c, 5a-5c (the regressors), which wait for
-the slice that brings their modules. config2's target scan (the JAX bench's
+The regressor configs run their backbones under bf16 autocast (the JAX
+benches' default compute dtype), everything after it in float32, on seeded
+random weights; 5b's spec is ``toy_model_spec(106, 31, 3)``, the width of
+the SMILy_Mouse model (J = 31, about 11,000 vertices). Not ported yet:
+configs 4b, 4c and 5c (train steps), which come with the trainers.
+config2's target scan (the JAX bench's
 is the Atta scan, which the repository does not hold) is ``--target-obj``:
 without it the run skips config2, and ``--only config2`` is refused.
 
@@ -67,7 +78,15 @@ CONFIGS = (
     "config3b_smalfitter_512_window10",
     "config3c_smalfitter_512_window10_worklist",
     "config3d_smalfitter_512_window10_worklist700",
+    "config4_singleview_resnet50",
+    "config5a_multiview_4cam_stick",
+    "config5b_multiview_18cam_mouse",
 )
+MOUSE_WIDTH = (106, 31, 3)   # toy_model_spec(V_side, J, B): V=11,236, J=31 (SMILy_Mouse)
+# the JAX benches' regressor: ResNet-50, IEF decoder 256 × 4 layers × 3 iterations
+REGRESSOR_KW = dict(backbone="resnet50", decoder_dim=256, decoder_depth=4, ief_iters=3,
+                    compute_dtype=torch.bfloat16)
+MULTIVIEW_KW = dict(fusion_heads=4, fusion_layers=2, camera_delta_mode=False)
 # config → (frames, work-list cap or None for exact)
 FITTER_CONFIGS = {CONFIGS[2]: (1, None), CONFIGS[3]: (10, None),
                   CONFIGS[4]: (10, 800), CONFIGS[5]: (10, 700)}
@@ -249,9 +268,150 @@ def bench_fitter_step(spec, n_frames=1, approx_max_faces=None, fp32_peak_gflops=
     return out
 
 
+def singleview_model(spec, res=224, compute_dtype=torch.bfloat16):
+    """config 4's regressor on ``spec``'s device, eval mode, seeded weights."""
+    from smilify_tpu_torch.models.regressor import RegressorConfig, SMILRegressor
+
+    torch.manual_seed(0)
+    cfg = RegressorConfig(n_pose=spec.n_joints - 1, n_betas=spec.n_betas, n_joints=spec.n_joints,
+                          **dict(REGRESSOR_KW, compute_dtype=compute_dtype))
+    model = SMILRegressor(cfg, img_size=res).to(spec.device).eval()
+    if spec.device.type == "cuda":
+        model = model.to(memory_format=torch.channels_last)
+    return cfg, model
+
+
+def multiview_model(spec, n_views, res=224, compute_dtype=torch.bfloat16):
+    """configs 5a/5b's regressor on ``spec``'s device, eval mode, seeded weights."""
+    from smilify_tpu_torch.models.multiview import MultiViewConfig, MultiViewSMILRegressor
+
+    torch.manual_seed(0)
+    cfg = MultiViewConfig(n_pose=spec.n_joints - 1, n_betas=spec.n_betas, n_joints=spec.n_joints,
+                          max_views=n_views, **dict(REGRESSOR_KW, compute_dtype=compute_dtype),
+                          **MULTIVIEW_KW)
+    model = MultiViewSMILRegressor(cfg, img_size=res).to(spec.device).eval()
+    if spec.device.type == "cuda":
+        model = model.to(memory_format=torch.channels_last)
+    return cfg, model
+
+
+def bench_singleview_inference(spec, batches=(8, 128), res=224, repeats=3, target_s=1.0):
+    """config 4: images/s of the model and the decode at each batch."""
+    from smilify_tpu_torch.models.regressor import decode_predictions, float32_region
+
+    cfg, model = singleview_model(spec, res)
+
+    @torch.no_grad()
+    def chain(imgs):
+        raw, _ = model(imgs)
+        with float32_region(imgs.device):
+            preds = decode_predictions(cfg, raw, spec)
+        # fold the predictions into the next batch: every step depends on the last
+        return imgs * (1.0 - 1e-5) + torch.mean(preds["trans"]) * 1e-7
+
+    out = {"backbone": "resnet50", "resolution": res, "compute": "bf16 autocast backbone"}
+    rng = np.random.RandomState(0)
+    for B in batches:
+        imgs = torch.as_tensor(rng.rand(B, res, res, 3).astype(np.float32), device=spec.device)
+        dt = timeit_chain(chain, imgs, n1=4, n2=16, repeats=repeats, target_s=target_s)
+        out[f"batch{B}_ms"] = dt * 1000
+        out[f"batch{B}_images_per_sec"] = B / dt
+    out["images_per_sec"] = out[f"batch{batches[-1]}_images_per_sec"]
+    return out
+
+
+def multiview_chain(spec, cfg, model, res):
+    """configs 5a/5b's dependent step: model, decode, SMIL forward, the
+    projection through each view and the DLT re-triangulation of the
+    projected keypoints, folded back into the next step's images."""
+    from smilify_tpu_torch.models.multiview import (
+        decode_multiview_predictions,
+        project_through_view_cameras,
+        view_projection_matrices,
+    )
+    from smilify_tpu_torch.models.regressor import float32_region, forward_model
+    from smilify_tpu_torch.render.cameras import triangulate_dlt
+
+    @torch.no_grad()
+    def chain(carry):
+        imgs, vm, cids = carry
+        raw, _ = model(imgs, vm, cids)
+        with float32_region(imgs.device):
+            preds = decode_multiview_predictions(cfg, raw, spec)
+            _, joints3d = forward_model(spec, preds)
+            kp2d = project_through_view_cameras(preds, joints3d, (res, res))
+            P = view_projection_matrices(preds)
+            ndc = torch.stack([(res - 1.0 - 2.0 * kp2d[..., 1] * res) / res,
+                               (res - 1.0 - 2.0 * kp2d[..., 0] * res) / res], dim=-1)
+            ones = torch.ones(ndc.shape[:2], dtype=torch.bool, device=ndc.device)
+            tri = triangulate_dlt(ndc, P, ones)
+        return imgs * (1.0 - 1e-5) + (torch.mean(kp2d) + torch.mean(tri)) * 1e-8, vm, cids
+
+    return chain
+
+
+def bench_multiview_inference(spec, n_views, label, batches=(1, 8), res=224, repeats=3,
+                              target_s=1.0):
+    """configs 5a/5b: frames/s (a frame = ``n_views`` images) at each batch."""
+    cfg, model = multiview_model(spec, n_views, res)
+    chain = multiview_chain(spec, cfg, model, res)
+    out = {"views": n_views, "resolution": res, "compute": "bf16 autocast backbone"}
+    rng = np.random.RandomState(0)
+    for B in batches:
+        imgs = torch.as_tensor(rng.rand(B, n_views, res, res, 3).astype(np.float32),
+                               device=spec.device)
+        vm = torch.ones((B, n_views), dtype=torch.bool, device=spec.device)
+        cids = torch.arange(n_views, device=spec.device).expand(B, n_views)
+        dt = timeit_chain(chain, (imgs, vm, cids), n1=3, n2=12, repeats=repeats, target_s=target_s)
+        out[f"{label}_b{B}_ms"] = dt * 1000
+        out[f"{label}_b{B}_frames_per_sec"] = B / dt
+    out[f"{label}_frames_per_sec"] = out[f"{label}_b{batches[-1]}_frames_per_sec"]
+    return out
+
+
+def count_flops(model, *inputs) -> int:
+    """Multiply-adds × 2 of one forward of ``model`` on ``inputs``, counted
+    from the shapes its convolutions, linear layers and attention modules
+    see (forward hooks; normalizations and activations are not counted)."""
+    from smilify_tpu_torch.models.backbones import Attention
+    from smilify_tpu_torch.models.transformer_decoder import MultiHeadDotProductAttention
+
+    total = [0]
+
+    def conv(m, args, out):
+        k = m.weight[0].numel()                    # (Cin / groups) · kh · kw
+        total[0] += 2 * out.numel() * k
+
+    def linear(m, args, out):
+        total[0] += 2 * out.numel() * m.in_features
+
+    def attention(m, args, out):
+        q = args[0]
+        kv = args[1] if len(args) > 1 else q
+        # scores and weighted sum: 2 · (B · Lq · Lk · D) each
+        total[0] += 4 * q.shape[0] * q.shape[1] * kv.shape[1] * q.shape[2]
+
+    hooks = []
+    for m in model.modules():
+        if isinstance(m, torch.nn.Conv2d):
+            hooks.append(m.register_forward_hook(conv))
+        elif isinstance(m, torch.nn.Linear):
+            hooks.append(m.register_forward_hook(linear))
+        elif isinstance(m, (Attention, MultiHeadDotProductAttention)):
+            hooks.append(m.register_forward_hook(attention))
+    try:
+        with torch.no_grad():
+            model(*inputs)
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
 def run(spec, only=None, size=512, repeats=3, target_s=1.0, target_obj=None) -> dict:
     """The configs whose key contains any string of ``only`` (all when None);
-    config2 only with a ``target_obj``."""
+    config2 only with a ``target_obj``. Config 5b builds its own
+    mouse-width spec on ``spec``'s device."""
     def wanted(key):
         return only is None or any(s in key for s in only)
 
@@ -270,11 +430,22 @@ def run(spec, only=None, size=512, repeats=3, target_s=1.0, target_obj=None) -> 
         report[key] = bench_fitter_step(spec, frames, cap, peak, size, repeats, target_s)
         if cap is not None:
             report[key]["iou_vs_exact"] = measure_worklist_iou(spec, cap, size)
+    if wanted(CONFIGS[6]):
+        report[CONFIGS[6]] = bench_singleview_inference(spec, repeats=repeats, target_s=target_s)
+    if wanted(CONFIGS[7]):
+        report[CONFIGS[7]] = bench_multiview_inference(spec, 4, "stick4", repeats=repeats,
+                                                       target_s=target_s)
+    if wanted(CONFIGS[8]):
+        from smilify_tpu_torch.core.spec import toy_model_spec
+
+        mouse = toy_model_spec(*MOUSE_WIDTH, device=spec.device)
+        report[CONFIGS[8]] = bench_multiview_inference(mouse, 18, "mouse18", repeats=repeats,
+                                                       target_s=target_s)
     return report
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(description="the fitter configs of tools/bench_all.py")
+    ap = argparse.ArgumentParser(description="the configs of tools/bench_all.py")
     ap.add_argument("--only", nargs="*", default=None,
                     help="run only configs whose key contains any of these substrings; "
                          "results merge into the existing --out file")

@@ -8,7 +8,9 @@ and registration CLIs take are not in the repository; the CPU tests and
     (``utils/authoring.py::export_model_pkl``);
   * :func:`write_replicant_sequence` — a replicAnt COCO folder: ``labels.json``
     with the spec's joints as keypoints, PNG frames (the hard Phong render on
-    white) and ``SMIL/*_ID.png`` masks, from posed copies of the spec;
+    white) and ``SMIL/*_ID.png`` masks, from posed copies of the spec; or
+    the same frames in replicAnt's per-frame (Unreal) layout, which the
+    regressors' CLIs read;
   * :func:`posed_target_meshes` — posed and scaled copies of a spec, the
     registration's target scans.
 """
@@ -53,11 +55,22 @@ def write_model_pkl(path: str, spec: ModelSpec) -> str:
 
 @torch.no_grad()
 def write_replicant_sequence(root: str, spec: ModelSpec, n_frames: int, size: int,
-                             seed: int = 42) -> Tuple[str, List[str]]:
+                             seed: int = 42, layout: str = "coco") -> Tuple[str, List[str]]:
     """``n_frames`` frames of ``spec`` posed by ``synthetic_poses(seed)`` at
-    ``size``², as a replicAnt folder ``<root>/SMIL_COCO`` (``labels.json``,
-    ``data/SMIL_<i>_synth.png``) with masks in ``<root>/SMIL``. Returns
-    (the COCO folder, the frames' file names)."""
+    ``size``², seen by the default camera, in one of two replicAnt layouts:
+
+    * ``"coco"`` (what the fitter CLIs read): ``<root>/SMIL_COCO``
+      (``labels.json``, ``data/SMIL_<i>_synth.png``) with masks in
+      ``<root>/SMIL``; returns (the COCO folder, the frames' file names);
+    * ``"unreal"`` (what ``data.replicant.ReplicantDataset`` reads, and so
+      the regressors' CLIs): ``<root>/SMIL_synth/SMIL_synth_<i>.json`` with
+      the frame (PNG data under replicAnt's ``.JPG`` name), its ``_ID.png``
+      mask and the folder's ``_BatchData_SMIL_synth.json``; every joint's
+      local rotation is the identity, its 3D position the posed joint in
+      Unreal's mirrored centimetres; returns (that folder, the JSON names).
+    """
+    if layout == "unreal":
+        return _write_unreal_sequence(root, spec, n_frames, size, seed)
     from smilify_tpu_torch.core.lbs import smil_forward
     from smilify_tpu_torch.fitter.fitter import synthetic_poses
     from smilify_tpu_torch.render.cameras import default_camera
@@ -114,3 +127,54 @@ def posed_target_meshes(spec: ModelSpec, n: int, seed: int = 0) -> List[np.ndarr
                          torch.as_tensor(theta, dtype=torch.float32, device=dev)).verts
     verts = verts.cpu().numpy() * scale + shift
     return [v.astype(np.float32) for v in verts]
+
+
+@torch.no_grad()
+def _write_unreal_sequence(root: str, spec: ModelSpec, n_frames: int, size: int,
+                           seed: int) -> Tuple[str, List[str]]:
+    from smilify_tpu_torch.core.lbs import smil_forward
+    from smilify_tpu_torch.fitter.fitter import synthetic_poses
+    from smilify_tpu_torch.render.cameras import default_camera
+    from smilify_tpu_torch.render.phong import render_phong
+    from smilify_tpu_torch.render.rasterizer import soft_silhouette
+    from smilify_tpu_torch.utils.image_io import write_png
+
+    dev = spec.device
+    name = "SMIL_synth"
+    folder = os.path.join(root, name)
+    os.makedirs(folder, exist_ok=True)
+    with open(os.path.join(folder, f"_BatchData_{name}.json"), "w") as f:
+        json.dump({"Image Resolution": {"x": size, "y": size}}, f)
+    betas, theta, trans = (torch.as_tensor(a).to(dev) for a in synthetic_poses(spec, n_frames, seed))
+    out = smil_forward(spec, betas, theta)
+    verts, joints = out.verts + trans[:, None], out.joints + trans[:, None]
+    cam = default_camera(device=dev)
+    ident = {"x": 0.0, "y": 0.0, "z": 0.0, "w": 1.0}
+    view = {"xPlane": {"x": 1.0, "y": 0.0, "z": 0.0}, "yPlane": {"x": 0.0, "y": 1.0, "z": 0.0},
+            "zPlane": {"x": 0.0, "y": 0.0, "z": 1.0}, "wPlane": {"x": 0.0, "y": 0.0, "z": 270.0}}
+    names = []
+    for i in range(n_frames):
+        pv = cam.world_to_view(verts[i])
+        ndc = torch.cat([cam.view_to_ndc(pv)[:, :2], pv[:, 2:3]], dim=1)
+        rgb = render_phong(verts[i], pv, ndc, spec.faces, (size, size))
+        sil = soft_silhouette(ndc, spec.faces, (size, size), znear=cam.znear) > 0.5
+        yx = cam.project_points_yx(joints[i], (size, size)).cpu().numpy()
+        j3 = joints[i].cpu().numpy() * 100.0
+        keypoints = {
+            jn: {"quaternion": ident, "globalRotation": ident,
+                 "3DPos": {"x": float(-j3[j, 0]), "y": float(j3[j, 1]), "z": float(j3[j, 2])},
+                 "2DPos": {"x": float(yx[j, 1]), "y": float(yx[j, 0])}}
+            for j, jn in enumerate(spec.joint_names)}
+        subject = {"keypoints": keypoints,
+                   "shape betas": {f"b{k}": float(v) for k, v in enumerate(betas[i].tolist())}}
+        frame = {"iterationData": {"camera": {"View Matrix": view, "FOV": 60.0,
+                                              "Location": {"x": 0.0, "y": 0.0, "z": 270.0}},
+                                   "subject Data": [{"SMIL_0": subject}]}}
+        stem = os.path.join(folder, f"{name}_{i:02d}")
+        with open(stem + ".json", "w") as f:
+            json.dump(frame, f)
+        write_png(stem + ".JPG", (rgb * 255.0).round().to(torch.uint8).cpu().numpy())
+        mask = (sil.cpu().numpy() * 255).astype(np.uint8)
+        write_png(stem + "_ID.png", np.repeat(mask[..., None], 3, axis=-1))
+        names.append(os.path.basename(stem) + ".json")
+    return folder, names

@@ -1,2 +1,2 @@
-"""Training support: the device-resident data cache (the trainers follow
-with the neural models)."""
+"""Training support: configs, checkpoints, staging, splits, the device-resident
+data cache and the benchmark accumulator (the trainers follow)."""

@@ -123,3 +123,25 @@ def test_triangulate_dlt_recovers_points():
         ndc.append(cam.transform_points_ndc(torch.from_numpy(X))[:, :2])
     out = tcam.triangulate_dlt(torch.stack(ndc), torch.stack(P), torch.ones(3, dtype=torch.bool))
     np.testing.assert_allclose(out.numpy(), X, atol=1e-3)
+
+
+@pytest.mark.parametrize("mask_2d", [False, True], ids=["mask_views", "mask_views_joints"])
+def test_triangulate_dlt_batched_equals_jax_vmap(mask_2d):
+    """A leading batch axis in one call, against ``jax.vmap`` of the JAX
+    function over the same three samples (values and gradients, the
+    tolerances above)."""
+    samples = [_dlt_inputs(21 + 3 * i + mask_2d, mask_2d=mask_2d) for i in range(3)]
+    ndc, P, mask = (np.stack(a) for a in zip(*samples))
+    cot = np.random.default_rng(6).normal(size=(3, ndc.shape[2], 3)).astype(np.float32)
+
+    def f(n, p):
+        return jnp.sum(jax.vmap(jcam.triangulate_dlt)(n, p, jnp.asarray(mask)) * cot)
+
+    want = (np.asarray(jax.vmap(jcam.triangulate_dlt)(jnp.asarray(ndc), jnp.asarray(P),
+                                                      jnp.asarray(mask))),
+            *map(np.asarray, jax.grad(f, argnums=(0, 1))(jnp.asarray(ndc), jnp.asarray(P))))
+    got = _torch_dlt(ndc, P, mask, cot)
+    for name, g, w in zip(("points", "d/d points_2d", "d/d proj_matrices"), got, want):
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g, w, rtol=TRI_RTOL, atol=TRI_ATOL * np.abs(w).max(),
+                                   err_msg=name)

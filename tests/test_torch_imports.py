@@ -175,3 +175,34 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     # the FP32 peak is the card's: no CPU stand-in
     with pytest.raises(RuntimeError, match="CUDA device"):
         bench_all.measure_fp32_fma_peak_gflops(device="cpu")
+
+
+def test_serving_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """The regressors' serving path: the CLIs, the checkpoint loader and
+    bench_all's configs 4, 5a and 5b default to the card and raise without
+    one; asked for the CPU, the loader runs there."""
+    from smilify_tpu_torch.cli import benchmark_model, run_inference
+    from smilify_tpu_torch.core.spec import toy_model_spec
+    from smilify_tpu_torch.models.weight_port import build_model
+    from smilify_tpu_torch.tools import bench_all
+    from smilify_tpu_torch.tools.synthetic_data import write_model_pkl
+    from smilify_tpu_torch.train.config import load_config, resolve_model_spec
+    from smilify_tpu_torch.train.trainer import TrainState, save_checkpoint
+
+    pkl = write_model_pkl(str(tmp_path / "toy.pkl"), toy_model_spec(device="cpu"))
+    cfg = load_config(None, overrides={"smal_model.smal_file": pkl, "model.backbone_name": "unet_micro",
+                                       "model.input_resolution": 32})
+    model = build_model(cfg.regressor_config(resolve_model_spec(cfg, device="cpu")), img_size=32)
+    ckpt = save_checkpoint(str(tmp_path), TrainState(model.state_dict()), cfg, "final_model")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = [
+        lambda: run_inference.main(["--checkpoint", ckpt, "--data-path", str(tmp_path)]),
+        lambda: benchmark_model.main(["--checkpoint", ckpt, "--dataset-path", str(tmp_path)]),
+        lambda: run_inference.load_model_from_checkpoint(ckpt),
+        lambda: bench_all.main(["--only", "config4", "config5"]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    loaded = run_inference.load_model_from_checkpoint(ckpt, device="cpu")[0]
+    assert next(loaded.parameters()).device.type == "cpu"
