@@ -39,7 +39,20 @@ J=55, B=5, made from a seed) and checks their results:
     5a and 5b (18 views, the mouse-width spec) with short windows; and a
     profile of config 4 at B=128 in bf16: the device's busy share, the top
     operations, the FLOPs its layers' shapes give and the ``mfu`` against
-    989 TFLOP/s (H100 SXM dense bf16).
+    989 TFLOP/s (H100 SXM dense bf16);
+  * training (``bench_all`` configs 4b, 4c and 5c: the train steps, with
+    their ``mfu``; config 4b's profile at B=128): one config-4b train step
+    at B=2 in float32 on the card against the CPU (loss, gradients,
+    parameters and BatchNorm statistics after the step) and bf16 against
+    float32 on the loss; a learning check of the single-view regressor on 64
+    ``synthesize_multiview`` samples at 224² in ``DeviceDataCache`` (K1
+    launched by the generator), with a non-finite batch that must be
+    skipped; ``cli.train_regressor`` for 2 epochs on 16 replicAnt frames,
+    from the device cache and through the host pipeline, then
+    ``cli.run_inference`` on its checkpoint; ``cli.train_pointnet``; and the
+    input-pipeline bench's synthetic, serial, threaded and cached_staged
+    modes. The training path reaches no kernel; its launch counts are read
+    and must stay 0.
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after. Imports nothing of JAX or of the JAX package ``smilify_tpu``.
@@ -1466,7 +1479,8 @@ def serving_bench_and_profile(spec, dev, card):
     from smilify_tpu_torch.models.regressor import decode_predictions, float32_region
     from smilify_tpu_torch.tools import bench_all
 
-    report = bench_all.run(spec, only=["config4", "config5a", "config5b"], repeats=1, target_s=0.5)
+    report = bench_all.run(spec, only=["config4_", "config5a", "config5b"], repeats=1,
+                           target_s=0.5)
     for key, res in report.items():
         log(f"  bench_all {key}: " + json.dumps(res))
         check(all(v > 0 and math.isfinite(v) for k, v in res.items()
@@ -1532,6 +1546,350 @@ def serving_phase(toy, dev, card):
     return out
 
 
+# phase 12, training on the card: bench_all configs 4b/4c/5c with short
+# windows and config 4b's profile at B=128; one config-4b train step at B=2 in
+# float32 (TF32 off), the card against the CPU; a learning check of the
+# single-view regressor on 64 synthesize_multiview samples at 224² held in
+# DeviceDataCache; the trainer CLIs on a 16-frame replicAnt folder at 224²;
+# train_pointnet; the input-pipeline bench's modes at B=8, 10 steps each, on
+# 16 PNG frames
+TRAIN_CMP_B = 2
+LEARN_SAMPLES, LEARN_VIEWS, LEARN_B, LEARN_STEPS, LEARN_NAN_AT = 64, 4, 16, 120, 60
+LEARN_FALL = 4.0           # the learning check's loss must fall by this factor (measured 6.02x)
+CLI_FRAMES, CLI_BATCH = 16, 4
+PN_EPOCHS, PN_STEPS, PN_BATCH, PN_POINTS = 3, 30, 8, 1024
+PIPE_MODES, PIPE_BATCH, PIPE_STEPS = ("synthetic", "serial", "threaded", "cached_staged"), 8, 10
+PIPE_FRAMES = 16           # the folder the modes cycle through (two batches)
+# one float32 train step, card against CPU, each gate ~4-20x the gap measured
+# on the H100: the loss relative (9.42e-6); the gradients in relative L2
+# (2.55e-2; the CPU against itself on fewer threads 3.34e-2: this loss at
+# random weights projects keypoints from a camera near the body, and its
+# gradients are ill-conditioned); the update in relative L2 over the elements
+# whose gradients agree within 1% (5.04e-6, over 53.4% of them; Adam's first
+# step is ±lr an element, so the others may differ by 2·lr); the BatchNorm
+# statistics max |Δ| / max(1, max |CPU|) (8.10e-7)
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_UPDATE_TOL, TRAIN_STATS_TOL = 1e-4, 0.1, 1e-4, 1e-5
+TRAIN_DECIDED_MIN = 0.3
+# bf16 autocast of the backbone against float32 on the card: the loss,
+# relative (measured 0.195)
+TRAIN_BF16_LOSS_TOL = 0.5
+
+
+def _rel_gap(a, b) -> float:
+    """max |a − b| / max(1, max |b|), on the CPU."""
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+
+def training_rates(spec, dev, card):
+    """(a): bench_all configs 4b/4c/5c (short windows) and config 4b at
+    B=128 under the profiler: busy share and the top device operations."""
+    from smilify_tpu_torch.tools import bench_all
+
+    report = bench_all.run(spec, only=["config4b", "config4c", "config5c"], repeats=1,
+                           target_s=0.3)
+    for key, res in report.items():
+        log(f"  bench_all {key}: " + json.dumps(res))
+        check(all(v > 0 and math.isfinite(v) for k, v in res.items()
+                  if k.endswith(("_ms", "_per_sec", "mfu"))), f"bench_all {key}: a rate is not positive")
+        check(0 < res["mfu"] < 1, f"bench_all {key}: mfu {res['mfu']} out of range")
+    c4b, c4c, c5c = (report[k] for k in ("config4b_singleview_train_step",
+                                         "config4c_singleview_train_step_gn",
+                                         "config5c_multiview_train_step"))
+    log(f"  training rates ({card}): config4b {c4b['batch32_images_per_sec']:.1f} / "
+        f"{c4b['batch128_images_per_sec']:.1f} images/s at B=32 / 128 (mfu {c4b['batch32_mfu']:.4f} / "
+        f"{c4b['batch128_mfu']:.4f}); config4c {c4c['batch32_images_per_sec']:.1f} / "
+        f"{c4c['batch128_images_per_sec']:.1f} (mfu {c4c['batch32_mfu']:.4f} / {c4c['batch128_mfu']:.4f}); "
+        f"config5c {c5c['batch2_frames_per_sec']:.1f} / {c5c['batch8_frames_per_sec']:.1f} frames/s "
+        f"at B=2 / 8 ({c5c['batch8_view_images_per_sec']:.1f} view images/s, mfu "
+        f"{c5c['batch2_mfu']:.4f} / {c5c['batch8_mfu']:.4f})")
+
+    _, model, step, make_batch = bench_all.singleview_train_setup(spec)
+    batch = make_batch(PROFILE_B, np.random.RandomState(0))
+    for _ in range(3):
+        step(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PROFILE_STEPS):
+        step(batch)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
+    by_name = device_ops(lambda: [step(batch) for _ in range(PROFILE_STEPS)], host=False)
+    out = {"wall_ms": wall_ms}
+    if by_name:
+        busy_ms = sum(us for us, _ in by_name.values()) / 1e3 / PROFILE_STEPS
+        out.update(device_busy_ms=busy_ms, busy_share=busy_ms / wall_ms)
+        log(f"  config4b at B={PROFILE_B}, bf16: wall {wall_ms:.3f} ms a step (unprofiled), device "
+            f"busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), "
+            f"{sum(n for _, n in by_name.values()) / PROFILE_STEPS:.0f} device operations a step")
+        log_device_ops(by_name, PROFILE_STEPS, 12)
+    else:
+        log("  profile: the profiler recorded no device events; busy share not measured")
+    return {"config4b": c4b, "config4c": c4c, "config5c": c5c, "profile_4b": out}
+
+
+def _global_rel_l2(got, want) -> float:
+    """‖got − want‖ / ‖want‖ over every tensor of the two lists together, on the CPU."""
+    d = sum(float(((g.detach().double().cpu() - w.detach().double().cpu()) ** 2).sum())
+            for g, w in zip(got, want))
+    return (d / sum(float((w.detach().double().cpu() ** 2).sum()) for w in want)) ** 0.5
+
+
+def training_parity(toy, dev, card):
+    """(b): one config-4b train step at B=TRAIN_CMP_B in float32 (TF32 off)
+    from the same weights and batch on the card and on the CPU: the loss;
+    the gradients (relative L2 over all of them, beside the CPU against
+    itself on half its threads: this loss's gradients at random weights are
+    ill-conditioned); the parameters after the step (Adam's
+    first step is ±lr an element: within 2·lr everywhere, and equal where
+    the two gradients agree within 1%); the BatchNorm statistics; and the
+    loss of the bf16 step against float32 on the card."""
+    from smilify_tpu_torch.tools import bench_all
+
+    def setup(spec, dtype):
+        _, model, step, make_batch = bench_all.singleview_train_setup(spec, compute_dtype=dtype)
+        perturb_zero_params(model)
+        start = {n: p.detach().clone() for n, p in model.named_parameters()}
+        loss, _ = step(make_batch(TRAIN_CMP_B, np.random.RandomState(3)))
+        return model, start, float(loss)
+
+    cpu_spec = toy.to("cpu")
+    on_card, card_start, card_loss = setup(toy, torch.float32)
+    cpu, cpu_start, cpu_loss = setup(cpu_spec, torch.float32)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, threads // 2))     # the CPU's float sums in another order
+    ref, _, _ = setup(cpu_spec, torch.float32)
+    torch.set_num_threads(threads)
+    check(all(torch.equal(card_start[n].cpu(), cpu_start[n]) for n in cpu_start),
+          "training parity: the two models start from different weights")
+    names = list(cpu_start)
+    cp, pp, rp = (dict(m.named_parameters()) for m in (on_card, cpu, ref))
+    grad_gap = _global_rel_l2([cp[n].grad for n in names], [pp[n].grad for n in names])
+    grad_ref = _global_rel_l2([rp[n].grad for n in names], [pp[n].grad for n in names])
+    param_max = max(float((cp[n].detach().cpu() - pp[n].detach()).abs().max()) for n in names)
+    decided = {n: ((cp[n].grad.cpu() - pp[n].grad).abs() * 100 < pp[n].grad.abs()) for n in names}
+    kept = sum(int(decided[n].sum()) for n in names) / sum(decided[n].numel() for n in names)
+    update_gap = _global_rel_l2(
+        [(cp[n].detach().cpu() - cpu_start[n]) * decided[n] for n in names],
+        [(pp[n].detach() - cpu_start[n]) * decided[n] for n in names])
+    card_sd, cpu_sd = on_card.state_dict(), cpu.state_dict()
+    stats = [k for k in cpu_sd if k.endswith(("running_mean", "running_var"))]
+    stats_gap = max(_rel_gap(card_sd[k], cpu_sd[k]) for k in stats)
+    loss_gap = abs(card_loss - cpu_loss) / max(1.0, abs(cpu_loss))
+    _, _, bf16_loss = setup(toy, torch.bfloat16)
+    bf16_gap = abs(bf16_loss - card_loss) / max(1.0, abs(card_loss))
+    lr = bench_all.TRAIN_LR
+    log(f"  one config-4b train step at B={TRAIN_CMP_B}, float32, card ({card}) vs CPU: loss {card_loss:.6f} "
+        f"vs {cpu_loss:.6f}, gap {loss_gap:.3e} (gate {TRAIN_LOSS_TOL:g}); gradients, relative L2 "
+        f"{grad_gap:.3e} (gate {TRAIN_GRAD_TOL:g}; the CPU against itself on "
+        f"{max(1, threads // 2)} of its {threads} threads {grad_ref:.3e}); parameters after the "
+        f"step: max |Δ| {param_max:.3e} (gate 2·lr = {2 * lr:g}), relative L2 of the update over the {100 * kept:.1f}% of elements whose "
+        f"gradients agree within 1% {update_gap:.3e} (gate {TRAIN_UPDATE_TOL:g}); BatchNorm "
+        f"statistics over {len(stats)} tensors {stats_gap:.3e} (gate {TRAIN_STATS_TOL:g}); bf16 "
+        f"step's loss {bf16_loss:.6f} against float32 {bf16_gap:.3e} (bound {TRAIN_BF16_LOSS_TOL:g})")
+    check(math.isfinite(card_loss) and math.isfinite(bf16_loss), "training parity: loss")
+    check(loss_gap <= TRAIN_LOSS_TOL, f"training parity: loss gap {loss_gap:.3e}")
+    check(grad_gap <= TRAIN_GRAD_TOL, f"training parity: gradient gap {grad_gap:.3e}")
+    check(param_max <= 2 * lr * (1 + 1e-3), f"training parity: a parameter moved {param_max:.3e}")
+    check(update_gap <= TRAIN_UPDATE_TOL and kept >= TRAIN_DECIDED_MIN,
+          f"training parity: update gap {update_gap:.3e} over {kept:.3f} of the elements")
+    check(stats_gap <= TRAIN_STATS_TOL, f"training parity: BatchNorm statistics gap {stats_gap:.3e}")
+    check(bf16_gap <= TRAIN_BF16_LOSS_TOL, f"training parity: bf16 loss gap {bf16_gap:.3e}")
+    return {"loss": loss_gap, "grads": grad_gap, "grads_cpu_vs_cpu": grad_ref,
+            "param_max_abs": param_max, "update_decided": update_gap, "decided_share": kept,
+            "bn_stats": stats_gap, "bf16_loss": bf16_gap}
+
+
+def learning_check(toy, dev, card):
+    """(c): the single-view regressor (config 4b's model, bf16 backbone,
+    build_optimizer's Adam with the clip and the non-finite skip) trained on
+    LEARN_SAMPLES synthesize_multiview samples at 224² (view 0) held in
+    DeviceDataCache for LEARN_STEPS steps; step LEARN_NAN_AT gets a NaN
+    target: it must move no parameter and not Adam's step count."""
+    from smilify_tpu_torch.cli.train_regressor import make_singleview_apply_fn
+    from smilify_tpu_torch.data.synthetic import synthesize_multiview
+    from smilify_tpu_torch.models.regressor import compute_batch_loss
+    from smilify_tpu_torch.tools import bench_all
+    from smilify_tpu_torch.train.config import load_config
+    from smilify_tpu_torch.train.trainer import DeviceDataCache, build_optimizer, make_train_step
+
+    zero_counts()
+    samples = synthesize_multiview(toy, LEARN_SAMPLES, LEARN_VIEWS, SERVE_RES,
+                                   chunk_size=SERVE_MV_CHUNK, device=dev)
+    torch.cuda.synchronize()
+    k1 = read_counts()["exact_fwd"]
+    n_k1 = LEARN_VIEWS * math.ceil(LEARN_SAMPLES / SERVE_MV_CHUNK)
+    check(k1 == n_k1, f"learning check: synthesize_multiview launched K1 {k1} times, expected {n_k1}")
+    cache = DeviceDataCache(samples, device=dev)
+    cfg, model, _, _ = bench_all.singleview_train_setup(toy)
+    tcfg = load_config(None, overrides={"optimizer.optimizer_type": "adam"})
+    opt = build_optimizer(tcfg, 1e-4, False, model)
+    weights = dict(bench_all.TRAIN_WEIGHTS)
+
+    def loss_fn(preds, batch):
+        targets = {k: batch[k] for k in ("global_rot", "joint_rot", "betas")}
+        targets["keypoints_2d"] = batch["keypoints_2d"][:, 0].flip(-1) / SERVE_RES
+        targets["kp_visibility"] = batch["keypoint_visibility"][:, 0]
+        return compute_batch_loss(toy, cfg, preds, targets, weights, image_size=(SERVE_RES,) * 2)
+
+    apply_one = make_singleview_apply_fn(cfg, toy)
+    step = make_train_step(model, lambda m, b, t: apply_one(m, {"image": b["images"][:, 0]}, t),
+                           loss_fn, opt)
+    rng = np.random.default_rng(0)
+    zero_counts()
+    losses, skipped = [], None
+    t0 = time.perf_counter()
+    while len(losses) < LEARN_STEPS:
+        for batch in cache.iterate(LEARN_B, rng):
+            if len(losses) == LEARN_NAN_AT:
+                bad = dict(batch, betas=batch["betas"].clone())
+                bad["betas"][0, 0] = float("nan")
+                before = [p.detach().clone() for p in opt.params]
+                adam_before = float(opt.adam_step())
+                loss, _ = step(bad)
+                moved = sum(int(not torch.equal(a, p)) for a, p in zip(before, opt.params))
+                skipped = {"loss": float(loss), "params_moved": moved,
+                           "adam_step": (adam_before, float(opt.adam_step())),
+                           "notfinite_count": int(opt.notfinite_count)}
+                losses.append(float("nan"))
+                continue
+            loss, _ = step(batch)
+            losses.append(loss)
+            if len(losses) == LEARN_STEPS:
+                break
+    losses = [float(v) for v in losses]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    epoch = LEARN_SAMPLES // LEARN_B
+    first = float(np.mean(losses[:epoch]))
+    last = float(np.mean(losses[-epoch:]))
+    log(f"  learning check ({card}): {LEARN_STEPS} steps of B={LEARN_B} over {LEARN_SAMPLES} samples "
+        f"at {SERVE_RES}² from DeviceDataCache ({cache.bytes} bytes), {secs:.2f} s; mean loss of the "
+        f"first epoch {first:.5f}, of the last {last:.5f}: fell {first / last:.2f}x (gate "
+        f"{LEARN_FALL:g}x); K1 launches in synthesize_multiview {k1}, in training {counts}")
+    log(f"  non-finite batch at step {LEARN_NAN_AT}: loss {skipped['loss']}, parameters moved "
+        f"{skipped['params_moved']}, Adam step {skipped['adam_step'][0]:.0f} -> "
+        f"{skipped['adam_step'][1]:.0f}, consecutive non-finite count {skipped['notfinite_count']}")
+    check(all(math.isfinite(v) for i, v in enumerate(losses) if i != LEARN_NAN_AT),
+          "learning check: a non-finite loss")
+    check(first / last >= LEARN_FALL, f"learning check: the loss fell {first / last:.2f}x")
+    check(not math.isfinite(skipped["loss"]) and skipped["params_moved"] == 0
+          and skipped["adam_step"][0] == skipped["adam_step"][1] and skipped["notfinite_count"] == 1,
+          f"learning check: the non-finite step was not skipped: {skipped}")
+    check(int(opt.notfinite_count) == 0, "learning check: the skip count did not reset")
+    check(sum(counts.values()) == 0, f"learning check: training launched kernels {counts}")
+    return {"first_epoch_loss": first, "last_epoch_loss": last, "fall": first / last,
+            "seconds": secs, "skipped": skipped, "k1_launches": k1}
+
+
+def training_cli(toy, dev, work, card):
+    """(d): train_regressor 2 epochs on a CLI_FRAMES-frame replicAnt folder
+    at 224², once from DeviceDataCache and once through the host pipeline
+    with thread workers; each writes best_model and final_model; then
+    run_inference serves final_model on the card."""
+    from smilify_tpu_torch.cli import run_inference, train_regressor
+    from smilify_tpu_torch.tools.synthetic_data import write_model_pkl, write_replicant_sequence
+
+    pkl = write_model_pkl(str(work / "stick_width.pkl"), toy)
+    folder, _ = write_replicant_sequence(str(work / "seq"), toy, CLI_FRAMES, SERVE_RES,
+                                         layout="unreal")
+    out = {}
+    for label, extra in (("device_cache", ["training.device_data_cache=true"]),
+                         ("host_threads", ["training.num_workers=2", "training.worker_mode=thread"])):
+        run = work / label
+        zero_counts()
+        t0 = time.perf_counter()
+        state = train_regressor.main([
+            "--model", pkl, "--data-path", folder, "--epochs", "2", "--output-dir", str(run),
+            "--device", dev.type, "--set", "model.backbone_name=resnet50",
+            f"model.input_resolution={SERVE_RES}", f"training.batch_size={CLI_BATCH}",
+            "model.freeze_backbone=false", "dataset.train_ratio=0.5", "dataset.val_ratio=0.25",
+            "dataset.test_ratio=0.25", "dataset.dataset_fraction=1.0",
+            "training.use_mixed_precision=true", "output.num_visualization_samples=2", *extra])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        files = sorted(p.name for p in run.glob("*.pt"))
+        hist = [(h["epoch"], round(h["loss"], 5), round(h.get("val_loss", float("nan")), 5))
+                for h in state.history]
+        log(f"  train_regressor ({label}; {card}): 2 epochs, {secs:.2f} s; (epoch, loss, val_loss) {hist}; "
+            f"checkpoints {files}; kernel launches {read_counts()}")
+        check(len(state.history) == 2 and all(math.isfinite(h["loss"]) and
+                                              math.isfinite(h.get("val_loss", float("nan")))
+                                              for h in state.history),
+              f"train_regressor ({label}): losses {hist}")
+        check({"best_model.pt", "final_model.pt"} <= set(files),
+              f"train_regressor ({label}): checkpoints {files}")
+        out[label] = {"seconds": secs, "history": state.history}
+    zero_counts()
+    t0 = time.perf_counter()
+    traj = run_inference.main(["--checkpoint", str(work / "host_threads" / "final_model"),
+                               "--data-path", folder, "--device", dev.type])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    log(f"  run_inference on host_threads/final_model ({card}): {CLI_FRAMES} frames in {secs:.2f} s; "
+        f"outputs {sorted(traj)}; kernel launches {read_counts()}")
+    check(all(np.isfinite(np.asarray(v)).all() and len(v) == CLI_FRAMES for v in traj.values()),
+          "run_inference on the trained checkpoint: non-finite or missing predictions")
+    out["run_inference_seconds"] = secs
+    return out
+
+
+def training_pointnet(toy, dev, work, card):
+    """(e): train_pointnet for PN_EPOCHS epochs at constant sampling scales;
+    the last epoch's mean loss must be below the first's."""
+    from smilify_tpu_torch.cli import train_pointnet
+    from smilify_tpu_torch.tools.synthetic_data import write_model_pkl
+
+    pkl = write_model_pkl(str(work / "stick_width_pn.pkl"), toy)
+    t0 = time.perf_counter()
+    state = train_pointnet.main(["--model", pkl, "--epochs", str(PN_EPOCHS), "--steps-per-epoch",
+                                 str(PN_STEPS), "--batch", str(PN_BATCH), "--points", str(PN_POINTS),
+                                 "--output-dir", str(work / "pointnet"), "--device", dev.type])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    losses = [h["loss"] for h in state.history]
+    log(f"  train_pointnet ({card}): {PN_EPOCHS} epochs × {PN_STEPS} steps of {PN_BATCH} clouds × "
+        f"{PN_POINTS} points, {secs:.2f} s; epoch losses {[round(v, 5) for v in losses]}")
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+          f"train_pointnet: the loss did not fall {losses}")
+    check((work / "pointnet" / "final_model.pt").exists(), "train_pointnet: no checkpoint")
+    return {"seconds": secs, "losses": losses}
+
+
+def training_input_pipeline(work, card):
+    """(f): the port's input-pipeline bench, one process a mode."""
+    from smilify_tpu_torch.tools import bench_input_pipeline
+
+    t0 = time.perf_counter()
+    report = bench_input_pipeline.main(["--modes", *PIPE_MODES, "--batch", str(PIPE_BATCH),
+                                        "--steps", str(PIPE_STEPS), "--frames", str(PIPE_FRAMES),
+                                        "--work", str(work / "pipeline")])
+    log(f"  input pipeline ({card}), ms a step at B={PIPE_BATCH}, {PIPE_STEPS} steps, 224²: "
+        + ", ".join(f"{m} {report[f'{m}_step_ms']:.2f}" for m in PIPE_MODES)
+        + f" ({time.perf_counter() - t0:.1f} s)")
+    check(all(report[f"{m}_step_ms"] > 0 for m in PIPE_MODES), "input pipeline: a mode's time")
+    return report
+
+
+def training_phase(toy, dev, card):
+    """Phase 12: training on the card (see the constants above)."""
+    work = ROOT / "build" / "smoke_training"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    out = {}
+    for name, fn in (("rates", lambda: training_rates(toy, dev, card)),
+                     ("parity", lambda: training_parity(toy, dev, card)),
+                     ("learning", lambda: learning_check(toy, dev, card)),
+                     ("cli", lambda: training_cli(toy, dev, work, card)),
+                     ("pointnet", lambda: training_pointnet(toy, dev, work, card)),
+                     ("input_pipeline", lambda: training_input_pipeline(work, card))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        log(f"  ({name}: {time.perf_counter() - t0:.1f} s)")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs an NVIDIA GPU")
@@ -1554,7 +1912,7 @@ def main():
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
 
-    log("[1/11] build")
+    log("[1/12] build")
     t0 = time.perf_counter()
     libs = _kernels.build_all()
     log(f"  built {', '.join(p.name for p in libs.values())} in {time.perf_counter() - t0:.1f} s")
@@ -1574,7 +1932,7 @@ def main():
     spec, spec_name = load_spec(device=dev)
     log(f"  spec: {spec_name}, B={spec.n_betas}")
 
-    log("[2/11] kernels against their plain versions at the driven paths' shapes")
+    log("[2/12] kernels against their plain versions at the driven paths' shapes")
     shape = source_constants(RASTER_CU.read_text(), FWD_SHAPE + BWD_SHAPE)
     log(f"  launch shapes (csrc/raster.cu): {shape}")
     raster = ("exact_fwd", "exact_bwd", "worklist_fwd", "worklist_bwd")
@@ -1593,7 +1951,7 @@ def main():
     for n_frames, size in ((1, SIZE),) + shapes:
         kernel_phase(spec, n_frames, size, dev, saturating=True)
     records.append(peak_phase(dev))
-    log("[3/11] main path: SmalFitter, 4 stages × 10 steps, 1 frame at 512²")
+    log("[3/12] main path: SmalFitter, 4 stages × 10 steps, 1 frame at 512²")
     data = synthetic_fit_data(spec, 1, SIZE)
     cover = float(data.sil.mean())
     log(f"  target silhouette covers {cover:.4f} of the image")
@@ -1638,41 +1996,50 @@ def main():
     log(f"  IoU of capped (cap {cap}) against exact on the exact fit's pose: {iou_cap:.4f}")
     check(iou_cap >= 0.99, "capped raster IoU against exact below 0.99")
 
-    log("[4/11] references")
+    log("[4/12] references")
     reference_phase(spec, dev)
 
-    log("[5/11] where the time goes: 1 and 10 frames")
+    log("[5/12] where the time goes: 1 and 10 frames")
     data10 = synthetic_fit_data(spec, 10, SIZE)
     for frames, d in ((1, data), (10, data10)):
         for mode, (mode_cap, _) in modes.items():
             profile_phase(spec, d, dev, f"{mode}, {frames} frame(s),", mode_cap)
 
-    log("[6/11] bench path: bench, bench_all configs 1, 3, 3b, 3c (short windows)")
+    log("[6/12] bench path: bench, bench_all configs 1, 3, 3b, 3c (short windows)")
     bench_counts = bench_phase(spec, spec_name, dev)
     records[4]["launches"] = bench_counts["fma_peak"]
 
-    log("[7/11] batched and progressive fitters, bench_corpus")
+    log("[7/12] batched and progressive fitters, bench_corpus")
     batched_phase(spec, spec_name, dev)
 
-    log("[8/11] fitter CLIs: optimize_to_joints (capped, exact, texture), optimize_corpus at 512²")
+    log("[8/12] fitter CLIs: optimize_to_joints (capped, exact, texture), optimize_corpus at 512²")
     cli_phase(spec, dev, card)
 
-    log("[9/11] 3D registration: 8 targets, 2 stages; bench_all config2")
+    log("[9/12] 3D registration: 8 targets, 2 stages; bench_all config2")
     registration_phase(spec, dev, card)
 
-    log("[10/11] data pipeline: synthesize_multiview (1,600 samples, 4 views at 96²), "
+    log("[10/12] data pipeline: synthesize_multiview (1,600 samples, 4 views at 96²), "
         "DeviceDataCache, HDF5")
     t0 = time.perf_counter()
     records[0]["data_pipeline"] = data_phase(spec, dev, card)
     log(f"  phase 10: {time.perf_counter() - t0:.1f} s")
 
-    log("[11/11] neural serving: configs 4/5a card vs CPU, run_inference, multi-view serving, "
+    log("[11/12] neural serving: configs 4/5a card vs CPU, run_inference, multi-view serving, "
         "bench_all configs 4/5a/5b, config 4's profile")
     t0 = time.perf_counter()
     serving = serving_phase(spec, dev, card)
     log(f"  phase 11: {time.perf_counter() - t0:.1f} s")
     records[0]["serving_data"] = serving["multiview_data"]["k1"]
     log("serving " + json.dumps(serving))
+
+    log("[12/12] training: bench_all configs 4b/4c/5c and 4b's profile, one float32 step card "
+        "vs CPU, a learning check from DeviceDataCache, train_regressor (cache and host "
+        "pipeline) then run_inference, train_pointnet, the input-pipeline bench")
+    t0 = time.perf_counter()
+    training = training_phase(spec, dev, card)
+    log(f"  phase 12: {time.perf_counter() - t0:.1f} s")
+    records[0]["training_data_launches"] = training["learning"]["k1_launches"]
+    log("training " + json.dumps(training, default=float))
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}), flush=True)

@@ -91,8 +91,37 @@ def _pad_same(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
     return F.pad(x, pads) if any(pads) else x
 
 
+class FlaxBatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose running statistics move as Flax's
+    ``nn.BatchNorm`` moves its ``batch_stats``: ``ra = 0.99·ra + 0.01·stat``
+    with the **biased** batch variance, where torch takes the unbiased one
+    (× n/(n − 1)). Normalization is torch's (the biased variance in train
+    mode, the running statistics in eval mode), and the state-dict names
+    are ``nn.BatchNorm2d``'s.
+
+    Torch's update is kept (one fused pass over the activations) and its
+    variance term scaled back by (n − 1)/n on the C running variances. It
+    runs on copies of the statistics: autograd keeps the tensors it was
+    given, and the correction may not change them in place."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        n = x.numel() // x.shape[1]
+        m = self.momentum
+        mean, var = self.running_mean.clone(), self.running_var.clone()
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, m, self.eps)
+        with torch.no_grad():
+            # var = kept + m·var_unbiased → kept + m·var_biased
+            kept = self.running_var * (1.0 - m)
+            self.running_var.copy_((var - kept) * ((n - 1) / n) + kept)
+            self.running_mean.copy_(mean)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
 def _bn(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=1e-5, momentum=BN_MOMENTUM)
+    return FlaxBatchNorm2d(c, eps=1e-5, momentum=BN_MOMENTUM)
 
 
 def flax_init_(module: nn.Module) -> nn.Module:

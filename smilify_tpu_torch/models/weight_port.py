@@ -4,8 +4,9 @@
 Two sources:
 
 * **The JAX package's parameters.** :func:`state_dict_from_flax` turns a
-  Flax ``{"params": ..., "batch_stats": ...}`` tree (nested dicts of numpy
-  arrays, as ``jax.device_get`` or orbax return it) into the ``state_dict``
+  Flax ``{"params": ..., "batch_stats": ...}`` tree of a regressor or a
+  PointNet (nested dicts of numpy arrays, as ``jax.device_get`` or orbax
+  return it) into the ``state_dict``
   of a port model built from the same config. It walks the port's modules
   with their :meth:`flax_names` (identity where a module has none), converts
   each leaf (conv kernels HWIO → OIHW, depthwise included; Dense (in, out) →
@@ -113,11 +114,42 @@ class _Walk:
                 self.module(child, p + tname + ".", path + (fname,))
 
 
+_LEAF_MODULES = (nn.Conv2d, nn.Linear, nn.BatchNorm2d, nn.LayerNorm, nn.GroupNorm, nn.Embedding)
+
+
+def flax_module_paths(model: nn.Module) -> Dict[str, str]:
+    """{parameter name of ``model``: the Flax path (``a/b/c``) of the module
+    that holds it}, by the same walk as :func:`state_dict_from_flax`. The
+    trainers label their optimizer groups from these paths, as the JAX
+    package labels its Flax parameters."""
+    out: Dict[str, str] = {}
+
+    def walk(m: nn.Module, prefix: str, path: tuple):
+        if hasattr(m, "load_flax") or isinstance(m, _LEAF_MODULES):
+            for n, _ in m.named_parameters():
+                out[prefix + n] = "/".join(path)
+            return
+        for tname, fname in _children(m).items():
+            try:
+                child = m.get_submodule(tname)
+            except AttributeError:
+                out[prefix + tname] = "/".join(path + (fname,))
+                continue
+            walk(child, prefix + tname + ".", path + (fname,))
+
+    walk(model, "", ())
+    return out
+
+
 def build_model(cfg, img_size: int = 224) -> nn.Module:
-    """The port's regressor for a ``RegressorConfig`` or ``MultiViewConfig``."""
+    """The port's model for a ``RegressorConfig``, ``MultiViewConfig`` or
+    ``PointNetConfig``."""
     from smilify_tpu_torch.models.multiview import MultiViewConfig, MultiViewSMILRegressor
+    from smilify_tpu_torch.models.pointnet import PointNetConfig, SMILPointNet
     from smilify_tpu_torch.models.regressor import SMILRegressor
 
+    if isinstance(cfg, PointNetConfig):
+        return SMILPointNet(cfg)
     if isinstance(cfg, MultiViewConfig):
         return MultiViewSMILRegressor(cfg, img_size=img_size)
     return SMILRegressor(cfg, img_size=img_size)

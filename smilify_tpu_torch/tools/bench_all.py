@@ -20,14 +20,23 @@ Configs:
                                                and 8: model, decode, SMIL forward, the
                                                projection and the DLT re-triangulation
   config5b_multiview_18cam_mouse               the same at 18 views on the mouse-width spec
+  config4b_singleview_train_step               single-view training step (forward, backward,
+                                               Adam 1e-4): config 4's model in train mode,
+                                               param MSEs + visibility-weighted 2D keypoints,
+                                               B = 32 and 128
+  config4c_singleview_train_step_gn            the same with the GroupNorm ResNet-50
+  config5c_multiview_train_step                multi-view training step, 4 views at 224²,
+                                               B = 2 and 8: the full multi-view loss with
+                                               the DLT triangulation term
 
 The fitter configs share one measurement of the card's FP32 FMA peak (K5,
 ``tools/peak.py``), the denominator of ``raster_work_bound_over_peak_pct``.
 The regressor configs run their backbones under bf16 autocast (the JAX
 benches' default compute dtype), everything after it in float32, on seeded
 random weights; 5b's spec is ``toy_model_spec(106, 31, 3)``, the width of
-the SMILy_Mouse model (J = 31, about 11,000 vertices). Not ported yet:
-configs 4b, 4c and 5c (train steps), which come with the trainers.
+the SMILy_Mouse model (J = 31, about 11,000 vertices). The train-step
+configs add ``mfu``: 3 × the forward FLOPs of :func:`count_flops` a second
+over 989 TFLOP/s (H100 SXM dense bf16), at their largest batch.
 config2's target scan (the JAX bench's
 is the Atta scan, which the repository does not hold) is ``--target-obj``:
 without it the run skips config2, and ``--only config2`` is refused.
@@ -81,6 +90,9 @@ CONFIGS = (
     "config4_singleview_resnet50",
     "config5a_multiview_4cam_stick",
     "config5b_multiview_18cam_mouse",
+    "config4b_singleview_train_step",
+    "config4c_singleview_train_step_gn",
+    "config5c_multiview_train_step",
 )
 MOUSE_WIDTH = (106, 31, 3)   # toy_model_spec(V_side, J, B): V=11,236, J=31 (SMILy_Mouse)
 # the JAX benches' regressor: ResNet-50, IEF decoder 256 × 4 layers × 3 iterations
@@ -369,6 +381,154 @@ def bench_multiview_inference(spec, n_views, label, batches=(1, 8), res=224, rep
     return out
 
 
+PEAK_BF16_PER_S = 989e12          # H100 SXM dense bf16 tensor-core peak
+TRAIN_LR = 1e-4                   # the JAX benches' optax.adam(1e-4)
+# the single-view train step's loss weights (tools/bench_all.py:386-395)
+TRAIN_WEIGHTS = {"global_rot": 1.0, "joint_rot": 1.0, "betas": 0.5, "trans": 1.0,
+                 "keypoint_2d": 1.0}
+
+
+def singleview_train_setup(spec, backbone="resnet50", res=224, compute_dtype=torch.bfloat16):
+    """configs 4b/4c: (model in train mode, its train step, a batch maker
+    ``batch(B, rng)``): Adam 1e-4, param MSEs + visibility-weighted 2D
+    keypoints."""
+    from smilify_tpu_torch.cli.train_regressor import make_singleview_apply_fn
+    from smilify_tpu_torch.models.regressor import RegressorConfig, SMILRegressor, compute_batch_loss
+    from smilify_tpu_torch.train.trainer import PlainAdam, make_train_step
+
+    torch.manual_seed(0)
+    cfg = RegressorConfig(n_pose=spec.n_joints - 1, n_betas=spec.n_betas, n_joints=spec.n_joints,
+                          **dict(REGRESSOR_KW, backbone=backbone, compute_dtype=compute_dtype))
+    model = SMILRegressor(cfg, img_size=res).to(spec.device).train()
+    if spec.device.type == "cuda":
+        model = model.to(memory_format=torch.channels_last)
+
+    def loss_fn(preds, batch):
+        targets = {k: batch[k] for k in ("global_rot", "joint_rot", "betas", "trans",
+                                         "keypoints_2d", "kp_visibility")}
+        return compute_batch_loss(spec, cfg, preds, targets, TRAIN_WEIGHTS, image_size=(res, res))
+
+    step = make_train_step(model, make_singleview_apply_fn(cfg, spec), loss_fn,
+                           PlainAdam(model, TRAIN_LR))
+    dev, J = spec.device, spec.n_joints
+
+    def batch(B, rng):
+        return {"image": torch.as_tensor(rng.rand(B, res, res, 3).astype(np.float32), device=dev),
+                "global_rot": torch.zeros((B, 3), device=dev),
+                "joint_rot": torch.zeros((B, J - 1, 3), device=dev),
+                "betas": spec.shape_mean_betas.expand(B, -1).clone(),
+                "trans": torch.zeros((B, 3), device=dev),
+                "keypoints_2d": torch.as_tensor(rng.rand(B, J, 2).astype(np.float32), device=dev),
+                "kp_visibility": torch.ones((B, J), device=dev)}
+
+    return cfg, model, step, batch
+
+
+def multiview_train_setup(spec, n_views=4, res=224, compute_dtype=torch.bfloat16):
+    """config 5c: (model in train mode, its train step, a batch maker): the
+    full multi-view loss (param MSEs, per-view 2D keypoints, 3D keypoints,
+    cameras, DLT triangulation consistency) at its default weights."""
+    from smilify_tpu_torch.models.multiview import (
+        MULTIVIEW_DEFAULT_LOSS_WEIGHTS,
+        MultiViewConfig,
+        MultiViewSMILRegressor,
+        compute_multiview_batch_loss,
+        decode_multiview_predictions,
+    )
+    from smilify_tpu_torch.train.trainer import PlainAdam, make_train_step
+
+    torch.manual_seed(0)
+    cfg = MultiViewConfig(n_pose=spec.n_joints - 1, n_betas=spec.n_betas, n_joints=spec.n_joints,
+                          max_views=n_views, **dict(REGRESSOR_KW, compute_dtype=compute_dtype),
+                          **MULTIVIEW_KW)
+    model = MultiViewSMILRegressor(cfg, img_size=res).to(spec.device).train()
+    if spec.device.type == "cuda":
+        model = model.to(memory_format=torch.channels_last)
+
+    def apply_fn(m, batch, train):
+        raw, history = m(batch["images"], batch["view_mask"], batch["camera_ids"])
+        preds = decode_multiview_predictions(cfg, raw, spec)
+        preds["ief_history"] = history
+        return preds
+
+    def loss_fn(preds, batch):
+        return compute_multiview_batch_loss(spec, cfg, preds, batch["targets"], batch["view_mask"],
+                                            MULTIVIEW_DEFAULT_LOSS_WEIGHTS, image_size=(res, res))
+
+    step = make_train_step(model, apply_fn, loss_fn, PlainAdam(model, TRAIN_LR))
+    dev, K = spec.device, spec.n_joints
+    eye = torch.eye(3, device=dev)
+
+    def batch(B, rng):
+        f32 = lambda a: torch.as_tensor(a.astype(np.float32), device=dev)  # noqa: E731
+        targets = {"global_rot": torch.zeros((B, 3), device=dev),
+                   "joint_rot": torch.zeros((B, K - 1, 3), device=dev),
+                   "betas": spec.shape_mean_betas.expand(B, -1).clone(),
+                   "trans": torch.zeros((B, 3), device=dev),
+                   "keypoints_2d": f32(rng.rand(B, n_views, K, 2)),
+                   "kp_visibility": torch.ones((B, n_views, K), device=dev),
+                   "keypoints_3d": f32(rng.rand(B, K, 3)),
+                   "view_fov": torch.full((B, n_views), 60.0, device=dev),
+                   "view_cam_rot": eye.expand(B, n_views, 3, 3).clone(),
+                   "view_cam_trans": torch.tensor([0.0, 0.0, 2.7], device=dev).expand(
+                       B, n_views, 3).clone()}
+        return {"images": f32(rng.rand(B, n_views, res, res, 3)),
+                "view_mask": torch.ones((B, n_views), dtype=torch.bool, device=dev),
+                "camera_ids": torch.arange(n_views, device=dev).expand(B, n_views),
+                "targets": targets}
+
+    return cfg, model, step, batch
+
+
+def train_mfu(model, inputs, seconds: float) -> float:
+    """3 × the forward FLOPs of ``model`` on ``inputs`` (forward and
+    backward), a second, over the dense bf16 peak."""
+    return 3 * count_flops(model, *inputs) / seconds / PEAK_BF16_PER_S
+
+
+def _bench_train(setup, keys, inputs_of, batches, repeats, target_s, n_views=1):
+    """Time ``setup``'s train step at each batch: ms, the ``keys`` rates
+    (per sample, or per view image) and the mfu."""
+    _, model, step, make_batch = setup
+    rng = np.random.RandomState(0)
+    out = {}
+    for B in batches:
+        batch = make_batch(B, rng)
+        loss = torch.zeros((), device=next(model.parameters()).device)
+        # the step updates the model in place: each depends on the last
+        dt = timeit_chain(lambda _: step(batch)[0], loss, n1=2, n2=6, repeats=repeats,
+                          target_s=target_s)
+        out[f"batch{B}_ms"] = dt * 1000
+        for key, per in keys.items():
+            out[f"batch{B}_{key}"] = B * (n_views if per == "view" else 1) / dt
+        out[f"batch{B}_mfu"] = train_mfu(model, inputs_of(batch), dt)
+    out["mfu"] = out[f"batch{batches[-1]}_mfu"]
+    return out
+
+
+def bench_singleview_train_step(spec, backbone="resnet50", batches=(32, 128), res=224,
+                                repeats=3, target_s=1.0):
+    """configs 4b/4c: the single-view train step's images/s and mfu at each batch."""
+    out = {"backbone": backbone, "resolution": res, "compute": "bf16 autocast backbone",
+           "losses": "param MSEs + visibility-weighted kp2d"}
+    out.update(_bench_train(singleview_train_setup(spec, backbone, res),
+                            {"images_per_sec": "sample"}, lambda b: (b["image"],), batches,
+                            repeats, target_s))
+    return out
+
+
+def bench_multiview_train_step(spec, n_views=4, batches=(2, 8), res=224, repeats=3, target_s=1.0):
+    """config 5c: the multi-view train step's frames/s, view images/s and mfu."""
+    out = {"backbone": "resnet50", "resolution": res, "views": n_views,
+           "compute": "bf16 autocast backbone",
+           "losses": "param MSEs + per-view kp2d + kp3d + cameras + DLT consistency"}
+    out.update(_bench_train(multiview_train_setup(spec, n_views, res),
+                            {"frames_per_sec": "sample", "view_images_per_sec": "view"},
+                            lambda b: (b["images"], b["view_mask"], b["camera_ids"]), batches,
+                            repeats, target_s, n_views))
+    return out
+
+
 def count_flops(model, *inputs) -> int:
     """Multiply-adds × 2 of one forward of ``model`` on ``inputs``, counted
     from the shapes its convolutions, linear layers and attention modules
@@ -441,6 +601,13 @@ def run(spec, only=None, size=512, repeats=3, target_s=1.0, target_obj=None) -> 
         mouse = toy_model_spec(*MOUSE_WIDTH, device=spec.device)
         report[CONFIGS[8]] = bench_multiview_inference(mouse, 18, "mouse18", repeats=repeats,
                                                        target_s=target_s)
+    if wanted(CONFIGS[9]):
+        report[CONFIGS[9]] = bench_singleview_train_step(spec, repeats=repeats, target_s=target_s)
+    if wanted(CONFIGS[10]):
+        report[CONFIGS[10]] = bench_singleview_train_step(spec, "resnet50_gn", repeats=repeats,
+                                                          target_s=target_s)
+    if wanted(CONFIGS[11]):
+        report[CONFIGS[11]] = bench_multiview_train_step(spec, repeats=repeats, target_s=target_s)
     return report
 
 

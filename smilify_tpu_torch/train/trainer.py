@@ -1,11 +1,26 @@
-"""Training support (port of ``smilify_tpu/train/trainer.py``).
+"""Training loop for the neural regressors (port of
+``smilify_tpu/train/trainer.py``), on one device.
 
-What the regressors' serving path needs: :class:`TrainState` and the
-checkpoints (``<name>.pt`` holding the model's state dict beside the JAX
-package's ``<name>.meta.json``: epoch, step, the full config and the
-history), the pinned-memory :class:`StagingCollator`, the seeded dataset
-splits and :class:`SubsetDataset`, and :class:`DeviceDataCache`. The train
-step, the epoch runner and the host pipeline come with the trainers.
+* :func:`build_optimizer`: optax's chain as the JAX package builds it —
+  ``apply_if_finite(chain(clip_by_global_norm, multi_transform({head,
+  backbone, backbone_frozen})), 16)`` — on the model's parameters in place,
+  with the groups labelled from the Flax paths of the parameters;
+* :func:`make_train_step` (gradient accumulation over micro-batches, the
+  BatchNorm statistics advancing once a micro-batch) and
+  :func:`make_eval_step`;
+* the epoch runner: :func:`iterate_batches` (serial, thread or cached
+  process pools), :func:`end_of_epoch_outputs`, :func:`plot_training_history`
+  and :func:`try_resume`;
+* :class:`TrainState` and the checkpoints (``<name>.pt`` holding the model's
+  state dict and the optimizer's state beside the JAX package's
+  ``<name>.meta.json``: epoch, step, the full config and the history), the
+  pinned-memory :class:`StagingCollator`, the seeded dataset splits,
+  :class:`SubsetDataset` and :class:`DeviceDataCache`.
+
+A step reads nothing back to the host: the non-finite test, the clip and
+the skip are device tensors, the skip through the fused Adam kernel's
+``found_inf`` flag. The data-parallel form comes with the multi-device
+trainers.
 """
 
 from __future__ import annotations
@@ -13,7 +28,9 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Any, Dict, List, Tuple
+import time
+from collections import deque
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -83,6 +100,204 @@ class DeviceDataCache:
             idx = idx[: max(1, int(self.n * fraction))]
         for i in range(0, len(idx) - batch_size + 1, batch_size):
             yield self.batch(idx[i: i + batch_size])
+
+
+# ---------------------------------------------------------------------------
+# optimizer
+# ---------------------------------------------------------------------------
+
+MAX_CONSECUTIVE_ERRORS = 16     # optax.apply_if_finite's, as the JAX package sets it
+ADAM_BETAS, ADAM_EPS = (0.9, 0.999), 1e-8     # optax's defaults
+
+
+def is_backbone_path(path: str) -> bool:
+    """The JAX package's label: a parameter belongs to the backbone group
+    when its Flax path names a ResNet, ViT or UNet module or a backbone."""
+    return "ResNet" in path or "ViT" in path or "UNet" in path or "backbone" in path.lower()
+
+
+class Optimizer:
+    """The JAX package's ``build_optimizer`` transformation, applied to a
+    model's parameters in place by :meth:`step` after a backward pass.
+
+    * every gradient, the frozen backbone's included, is clipped by the
+      global norm with optax's formula ``g / ‖g‖ · max_norm`` where ‖g‖ ≥
+      max_norm (no epsilon, unlike ``clip_grad_norm_``);
+    * Adam or AdamW (``torch.optim``'s fused kernel) on a head group at
+      ``lr`` and a backbone group at ``lr × backbone_lr_multiplier``; a
+      frozen backbone gets no update and no Adam state;
+    * ``apply_if_finite(16)``: a step whose raw gradients hold a NaN or an
+      infinity updates nothing, Adam's moments and step count included,
+      unless it is the 17th or later such step in a row, which is applied.
+
+    The test and the skip stay on the device: the fused kernel skips a step
+    whose ``found_inf`` flag is 1, so a step reads nothing back to the host.
+    """
+
+    def __init__(self, model: torch.nn.Module, cfg, lr: float, backbone_frozen: bool):
+        from smilify_tpu_torch.models.weight_port import flax_module_paths
+
+        paths = flax_module_paths(model)
+        named = list(model.named_parameters())
+        self.params = [p for _, p in named]
+        self.labels: Dict[str, str] = {}
+        groups = {"head": [], "backbone": [], "backbone_frozen": []}
+        for name, p in named:
+            label = "head"
+            if is_backbone_path(paths.get(name, name)):
+                label = "backbone_frozen" if backbone_frozen else "backbone"
+            self.labels[name] = label
+            groups[label].append(p)
+        kind = cfg.optimizer.optimizer_type.lower()
+        if kind == "adam":
+            make, kw = torch.optim.Adam, {}
+        elif kind == "adamw":
+            make, kw = torch.optim.AdamW, {"weight_decay": cfg.optimizer.weight_decay}
+        else:
+            raise ValueError(f"unknown optimizer_type '{cfg.optimizer.optimizer_type}'")
+        param_groups = [{"params": ps, "lr": r} for ps, r in (
+            (groups["head"], lr), (groups["backbone"], lr * cfg.model.backbone_lr_multiplier)) if ps]
+        self.inner = (make(param_groups, lr=lr, betas=ADAM_BETAS, eps=ADAM_EPS, fused=True, **kw)
+                      if param_groups else None)
+        self.max_norm = float(cfg.optimizer.gradient_clip_norm)
+        dev = self.params[0].device
+        self.notfinite_count = torch.zeros((), dtype=torch.int32, device=dev)
+        self.total_notfinite = torch.zeros((), dtype=torch.int32, device=dev)
+        self.grad_norm = torch.zeros((), device=dev)
+
+    @torch.no_grad()
+    def step(self) -> None:
+        for p in self.params:
+            if p.grad is None:          # a parameter the loss does not reach: a zero gradient
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in self.params]
+        # every element finite ⇔ every max |g| finite (a NaN or ±inf propagates)
+        finite = torch.isfinite(torch.stack(torch._foreach_norm(grads, float("inf")))).all()
+        g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        keep = g_norm < self.max_norm
+        one = torch.ones((), dtype=g_norm.dtype, device=g_norm.device)
+        torch._foreach_div_(grads, torch.where(keep, one, g_norm))
+        torch._foreach_mul_(grads, torch.where(keep, one, one * self.max_norm))
+        self.notfinite_count = torch.where(finite, torch.zeros_like(self.notfinite_count),
+                                           self.notfinite_count + 1)
+        self.total_notfinite = self.total_notfinite + (~finite).to(torch.int32)
+        apply = finite | (self.notfinite_count > MAX_CONSECUTIVE_ERRORS)
+        self.grad_norm = g_norm
+        if self.inner is not None:
+            self.inner.found_inf = (~apply).to(torch.float32)
+            self.inner.step()
+
+    def adam_step(self) -> torch.Tensor:
+        """Adam's step count (the optax ``count``) of the first updated parameter."""
+        for group in self.inner.param_groups:
+            for p in group["params"]:
+                if p in self.inner.state:
+                    return self.inner.state[p]["step"]
+        return torch.zeros(())
+
+    def state_dict(self) -> Dict[str, Any]:
+        """What a checkpoint keeps (the trainers start each optimizer anew,
+        as the JAX ones call ``tx.init``, so nothing reads it back yet)."""
+        return {"inner": None if self.inner is None else self.inner.state_dict(),
+                "notfinite_count": self.notfinite_count, "total_notfinite": self.total_notfinite}
+
+
+class PlainAdam:
+    """``optax.adam(lr)`` (or ``optax.adamw(lr, weight_decay)``) alone, no
+    clip and no skip: the JAX benches' and PointNet trainer's optimizer, in
+    the interface :func:`make_train_step` takes (``params``, ``step()``)."""
+
+    def __init__(self, model: torch.nn.Module, lr: float, weight_decay: Optional[float] = None):
+        self.params = list(model.parameters())
+        make, kw = (torch.optim.Adam, {}) if weight_decay is None else (
+            torch.optim.AdamW, {"weight_decay": weight_decay})
+        self.inner = make(self.params, lr=lr, betas=ADAM_BETAS, eps=ADAM_EPS, fused=True, **kw)
+
+    def step(self) -> None:
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        self.inner.step()
+
+
+def build_optimizer(cfg, lr: float, backbone_frozen: bool, model: torch.nn.Module) -> Optimizer:
+    """Adam/AdamW (``optimizer.optimizer_type``) with the global-norm clip
+    and the non-finite skip, the backbone a separate (possibly frozen) group;
+    fresh moments, as the JAX trainers' ``tx.init`` gives."""
+    return Optimizer(model, cfg, lr, backbone_frozen)
+
+
+# ---------------------------------------------------------------------------
+# step factories
+# ---------------------------------------------------------------------------
+
+
+def _split_batch(batch, n: int) -> List:
+    """``batch`` (tensors, possibly in nested dicts) cut into ``n``
+    micro-batches along the leading axis."""
+    if isinstance(batch, dict):
+        parts = {k: _split_batch(v, n) for k, v in batch.items()}
+        return [{k: parts[k][i] for k in parts} for i in range(n)]
+    if isinstance(batch, torch.Tensor):
+        return list(batch.reshape((n, -1) + tuple(batch.shape[1:])).unbind(0))
+    return [batch] * n
+
+
+def make_train_step(model: torch.nn.Module, apply_fn: Callable, loss_fn: Callable,
+                    opt: Optimizer, accum_steps: int = 1):
+    """``step(batch) -> (loss, components)``, both device tensors.
+
+    ``apply_fn(model, batch, train) -> preds`` (the model in train mode
+    advances its BatchNorm statistics in place); ``loss_fn(preds, batch) ->
+    (total, components)``. With ``accum_steps > 1`` the batch is cut into
+    that many micro-batches: the gradients are averaged over them, the
+    statistics advance once a micro-batch, and the loss and each component
+    are the micro-batches' means. The statistics advance on a skipped
+    (non-finite) step too, as the JAX step returns its new statistics
+    unconditionally."""
+
+    def compute(mb):
+        total, objs = loss_fn(apply_fn(model, mb, True), mb)
+        total.backward()
+        return total.detach(), {k: v.detach() for k, v in objs.items()}
+
+    def step(batch):
+        model.train()
+        for p in opt.params:
+            p.grad = None
+        if accum_steps > 1:
+            outs = [compute(mb) for mb in _split_batch(batch, accum_steps)]
+            torch._foreach_div_([p.grad for p in opt.params if p.grad is not None],
+                                float(accum_steps))
+            loss = sum(loss for loss, _ in outs) / accum_steps
+            objs = {k: torch.stack([o[k] for _, o in outs]).mean() for k in outs[0][1]}
+        else:
+            loss, objs = compute(batch)
+        opt.step()
+        return loss, objs
+
+    return step
+
+
+def make_eval_step(model: torch.nn.Module, apply_fn: Callable, loss_fn: Callable):
+    """``step(batch) -> (loss, components)`` of the model in eval mode."""
+
+    @torch.no_grad()
+    def step(batch):
+        model.eval()
+        return loss_fn(apply_fn(model, batch, False), batch)
+
+    return step
+
+
+def narrow_floats(batch):
+    """float64 tensors of ``batch`` (nested dicts too) as float32, as JAX's
+    32-bit mode stores what a dataset gives in float64."""
+    if isinstance(batch, dict):
+        return {k: narrow_floats(v) for k, v in batch.items()}
+    if isinstance(batch, torch.Tensor) and batch.dtype == torch.float64:
+        return batch.to(torch.float32)
+    return batch
 
 
 # ---------------------------------------------------------------------------
@@ -261,3 +476,375 @@ class SubsetDataset:
     @property
     def epoch(self):
         return getattr(self.dataset, "epoch", None)
+
+
+# ---------------------------------------------------------------------------
+# epoch runner
+# ---------------------------------------------------------------------------
+
+# process-pool worker state: the dataset is shipped once a worker through the
+# pool's initializer (spawn pickles it; the datasets are numpy and pickle-safe)
+_WORKER_DATASET = None
+
+
+def _pool_init(dataset):
+    global _WORKER_DATASET
+    _WORKER_DATASET = dataset
+
+
+def _pool_load(args):
+    j, skip_errors, epoch = args
+    ds = _WORKER_DATASET
+    if epoch is not None and getattr(ds, "epoch", None) != epoch:
+        # the pool outlives epochs: forward the parent's set_epoch so that
+        # per-epoch augmentation stays fresh in the workers
+        set_epoch = getattr(ds, "set_epoch", None)
+        if set_epoch is not None:
+            set_epoch(epoch)
+    try:
+        return ds[j]
+    except Exception as e:  # noqa: BLE001 — per-sample resilience
+        if not skip_errors:
+            raise
+        print(f"warning: sample {j} failed to load ({type(e).__name__}: {e})")
+        return None
+
+
+# Process pools are cached across epochs: a respawn each epoch would pay the
+# workers' start-up and the dataset's pickling every epoch and drop their
+# DecodedSampleCache. Each worker is its own one-process executor and sample j
+# always goes to worker j % W, so every worker caches a disjoint 1/W of the
+# dataset. The value keeps the dataset alive so that its id() is not reused;
+# concurrent.futures joins the workers at interpreter exit.
+_PROCESS_POOLS: Dict[tuple, tuple] = {}
+
+
+def _get_process_pools(dataset, num_workers: int):
+    key = (id(dataset), num_workers)
+    entry = _PROCESS_POOLS.get(key)
+    if entry is not None:
+        return entry[0]
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
+    # spawn, not fork: a fork of a process that has initialized CUDA (or
+    # torch's thread pools) can deadlock
+    ctx = mp.get_context("spawn")
+    pools = [ProcessPoolExecutor(max_workers=1, mp_context=ctx, initializer=_pool_init,
+                                 initargs=(dataset,)) for _ in range(num_workers)]
+    _PROCESS_POOLS[key] = (pools, dataset)
+    return pools
+
+
+def iterate_batches(
+    dataset,
+    batch_size: int,
+    rng: np.random.Generator,
+    shuffle: bool = True,
+    fraction: float = 1.0,
+    collate: Callable = None,
+    drop_last: bool = True,
+    num_workers: int = 0,
+    prefetch: int = 2,
+    skip_errors: bool = False,
+    worker_mode: str = "thread",
+) -> Iterable[Dict[str, np.ndarray]]:
+    """Host-side batcher with per-epoch fractional subsampling: the JAX
+    package's index order for the same ``rng``.
+
+    ``num_workers > 0`` loads samples through a pool with a bounded
+    look-ahead of ``prefetch`` batches; ``worker_mode`` ``"thread"`` (decode
+    and augmentation release the GIL in cv2/numpy) or ``"process"`` (the
+    cached spawn pools, sample j on worker j % W). ``skip_errors`` drops
+    samples whose load raises; the dropped slots are filled from the epoch's
+    remaining indices, so every batch stays full. ``collate(samples)``
+    replaces the default ``np.stack`` of each field."""
+    n = len(dataset)
+    idx = rng.permutation(n) if shuffle else np.arange(n)
+    if fraction < 1.0:
+        idx = idx[: max(1, int(n * fraction))]
+    idx = [int(j) for j in idx]
+
+    def assemble(samples):
+        if collate is not None:
+            return collate(samples)
+        return {k: np.stack([np.asarray(s[k]) for s in samples]) for k in samples[0].keys()}
+
+    def load(j):
+        if not skip_errors:
+            return dataset[j]
+        try:
+            return dataset[j]
+        except Exception as e:  # noqa: BLE001 — per-sample resilience
+            print(f"warning: sample {j} failed to load ({type(e).__name__}: {e})")
+            return None
+
+    if num_workers <= 0:
+        buf = []
+        for j in idx:
+            s = load(j)
+            if s is None:
+                continue
+            buf.append(s)
+            if len(buf) == batch_size:
+                yield assemble(buf)
+                buf = []
+        if buf and not drop_last:
+            yield assemble(buf)
+        return
+
+    if worker_mode == "process":
+        # cached across calls (see _get_process_pools): not closed here
+        pools = _get_process_pools(dataset, num_workers)
+        epoch = getattr(dataset, "epoch", None)
+        submit = lambda j: pools[j % len(pools)].submit(  # noqa: E731
+            _pool_load, (j, skip_errors, epoch))
+        owns_pool = False
+    elif worker_mode == "thread":
+        from concurrent.futures import ThreadPoolExecutor
+
+        pool = ThreadPoolExecutor(max_workers=num_workers)
+        submit = lambda j: pool.submit(load, j)  # noqa: E731
+        owns_pool = True
+    else:
+        raise ValueError(f"unknown worker_mode '{worker_mode}'")
+
+    lookahead = max(batch_size * max(1, prefetch), num_workers)
+    try:
+        futures = deque(submit(j) for j in idx[:lookahead])
+        pending = deque(idx[lookahead:])
+        buf = []
+        while futures:
+            s = futures.popleft().result()
+            if pending:
+                futures.append(submit(pending.popleft()))
+            if s is None:
+                continue
+            buf.append(s)
+            if len(buf) == batch_size:
+                yield assemble(buf)
+                buf = []
+        if buf and not drop_last:
+            yield assemble(buf)
+    finally:
+        if owns_pool:
+            pool.shutdown(wait=True)
+
+
+def end_of_epoch_outputs(out_dir: str, state: TrainState, cfg, epoch: int,
+                         last_epoch: bool, best_val: float) -> float:
+    """The JAX trainers' checkpoint cadence: ``best_model`` whenever the
+    validation loss improves, ``epoch_N`` and ``final_model`` every
+    ``save_checkpoint_every`` epochs and at the last, the history plots every
+    ``plot_history_every``. Checkpoints go to ``out_dir/cfg.output.checkpoint_dir``.
+    Returns the best validation loss so far."""
+    ckpt_dir = os.path.normpath(os.path.join(out_dir, cfg.output.checkpoint_dir))
+    os.makedirs(ckpt_dir, exist_ok=True)
+    val = state.history[-1].get("val_loss") if state.history else None
+    if val is not None and val < best_val:
+        save_checkpoint(ckpt_dir, state, cfg, name="best_model")
+        print(f"epoch {epoch}: new best val_loss {val:.5f} -> best_model")
+        best_val = val
+    if (epoch + 1) % cfg.output.save_checkpoint_every == 0 or last_epoch:
+        save_checkpoint(ckpt_dir, state, cfg, name=f"epoch_{epoch}")
+        save_checkpoint(ckpt_dir, state, cfg, name="final_model")
+        print(f"checkpoint saved (epoch_{epoch} + final_model)")
+    if (epoch + 1) % cfg.output.plot_history_every == 0 or last_epoch:
+        plot_training_history(state.history, os.path.join(out_dir, cfg.output.plots_dir))
+    return best_val
+
+
+def plot_training_history(history: List[Dict[str, float]], out_dir: str):
+    """Loss, learning-rate, loss-component and IEF-delta curves of
+    ``TrainState.history`` as PNG files; returns their paths, and nothing
+    where matplotlib does not import."""
+    if not history:
+        return []
+    try:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+    except Exception:
+        return []
+    os.makedirs(out_dir, exist_ok=True)
+    epochs = [h.get("epoch", i) for i, h in enumerate(history)]
+    written = []
+
+    def plot(name, curves, ylabel, title, figsize, log=True):
+        fig, ax = plt.subplots(figsize=figsize)
+        for label, values in curves:
+            ax.plot(epochs, values, label=label)
+        ax.set_xlabel("epoch")
+        if ylabel:
+            ax.set_ylabel(ylabel)
+        if log:
+            ax.set_yscale("log")
+        if len(curves) > 1:
+            ax.legend(fontsize=7)
+        ax.set_title(title)
+        ax.grid(alpha=0.3)
+        p = os.path.join(out_dir, name)
+        fig.savefig(p, dpi=120)
+        plt.close(fig)
+        written.append(p)
+
+    plot("training_history.png", [("loss", [h["loss"] for h in history])], "loss",
+         "training loss", (7, 4), log=False)
+    if any("lr" in h for h in history):
+        plot("lr_schedule.png", [("lr", [h.get("lr", float("nan")) for h in history])], "lr",
+             "learning rate schedule", (7, 3))
+    for prefix, name, title in (("loss_", "loss_components.png", "loss components"),
+                                ("ief_", "ief_deltas.png", "IEF estimate-delta norms")):
+        keys = sorted({k for h in history for k in h if k.startswith(prefix)})
+        if keys:
+            plot(name, [(k[len(prefix):], [h.get(k, float("nan")) for h in history]) for k in keys],
+                 None, title, (8, 4))
+    return written
+
+
+# the IEF head's estimate-embedding parameters (reset_ief_token_embedding)
+_IEF_TOKEN_PARAMS = ("init_estimate", "estimate_embed", "estimate_norm")
+
+
+def try_resume(ckpt_dir: str, resume: Optional[str], state: TrainState,
+               model: torch.nn.Module, reset_ief_token_embedding: bool = False):
+    """Resume the model's parameters and statistics, the optimizer state and
+    the epoch from a checkpoint: ``resume`` is a checkpoint name within
+    ``ckpt_dir`` or a path, without extension. Returns ``(state, start_epoch)``.
+
+    ``reset_ief_token_embedding`` keeps the model's fresh values for the IEF
+    head's estimate-embedding parameters (the checkpoint-migration flag)."""
+    if not resume:
+        return state, 0
+    path = resume if os.path.isabs(resume) else os.path.join(ckpt_dir, resume)
+    path = os.path.abspath(path)
+    payload, meta = load_checkpoint(path)
+    restored = payload["model"]
+    if reset_ief_token_embedding:
+        from smilify_tpu_torch.models.weight_port import flax_module_paths
+
+        paths = flax_module_paths(model)
+        fresh = model.state_dict()
+        restored = {k: fresh[k] if any(s in paths.get(k, k) or s in k for s in _IEF_TOKEN_PARAMS)
+                    else v for k, v in restored.items()}
+        print("reset IEF token-embedding params to fresh init (migration)")
+    model.load_state_dict(restored)
+    state.model_state = model.state_dict()
+    if payload.get("opt_state") is not None:
+        state.opt_state = payload["opt_state"]
+    start_epoch = 0
+    if meta:
+        start_epoch = int(meta.get("epoch", -1)) + 1
+        state.history = list(meta.get("history", []))
+    print(f"resumed from {path} at epoch {start_epoch}")
+    return state, start_epoch
+
+
+def train_epochs(model: torch.nn.Module, cfg, apply_fn: Callable, make_loss: Callable,
+                 train_ds, val_ds, batch_size: int, device: torch.device, out_dir: str,
+                 state: TrainState, start_epoch: int = 0,
+                 visualize: Optional[Callable] = None) -> TrainState:
+    """The JAX trainer CLIs' epoch loop, shared by both ports.
+
+    Each epoch: the curriculum's loss weights and learning rate and the
+    backbone's freeze; a new optimizer (fresh Adam moments) and new step
+    functions whenever (weights, lr, frozen) changes; batches from a
+    :class:`DeviceDataCache` (``training.device_data_cache``, augmentation
+    off) or from :func:`iterate_batches` through a :class:`StagingCollator`
+    (skip_errors); per-batch resilience (a failing batch is skipped and
+    counted, and the error raised once the skips outnumber max(4, the steps
+    so far)); the validation loss; ``visualize(epoch) -> metrics`` on the
+    visualization cadence; :func:`end_of_epoch_outputs`. ``make_loss(weights)``
+    builds ``loss_fn(preds, batch)``."""
+    bs = batch_size
+    host_rng = np.random.default_rng(cfg.training.seed)
+    staging = StagingCollator()
+    device_cache = val_cache = None
+    if cfg.training.device_data_cache:
+        if cfg.augmentation.enabled:
+            print("device_data_cache disabled: needs augmentation off — falling back to the "
+                  "host pipeline")
+        else:
+            device_cache = DeviceDataCache(train_ds, device)
+            if len(val_ds) >= bs:
+                val_cache = DeviceDataCache(val_ds, device)
+            print(f"device data cache: {len(train_ds)} train samples, "
+                  f"{device_cache.bytes / 1e6:.0f} MB resident on {device}")
+
+    def to_device(host_batch):
+        return narrow_floats(staging.to_device(host_batch, device))
+
+    current = {"key": None}
+    t_start = time.time()
+    best_val = min((h.get("val_loss", float("inf")) for h in state.history), default=float("inf"))
+    for epoch in range(start_epoch, cfg.training.num_epochs):
+        if hasattr(train_ds, "set_epoch"):
+            train_ds.set_epoch(epoch)
+        weights = cfg.get_loss_weights_for_epoch(epoch)
+        lr = cfg.get_learning_rate_for_epoch(epoch)
+        frozen = cfg.model.freeze_backbone and (
+            cfg.model.backbone_unfreeze_epoch is None or epoch < cfg.model.backbone_unfreeze_epoch)
+        key = (tuple(sorted(weights.items())), lr, frozen)
+        if key != current["key"]:
+            opt = build_optimizer(cfg, lr, frozen, model)
+            loss_fn = make_loss(dict(weights))
+            current.update(key=key, opt=opt,
+                           step_fn=make_train_step(model, apply_fn, loss_fn, opt,
+                                                   cfg.training.gradient_accumulation_steps),
+                           eval_fn=make_eval_step(model, apply_fn, loss_fn))
+            print(f"epoch {epoch}: lr={lr} frozen_backbone={frozen}")
+
+        losses, objs, skipped = [], {}, 0
+        if device_cache is not None:
+            batch_iter = device_cache.iterate(bs, host_rng, fraction=cfg.dataset.dataset_fraction)
+        else:
+            batch_iter = iterate_batches(train_ds, bs, host_rng,
+                                         fraction=cfg.dataset.dataset_fraction, collate=staging,
+                                         num_workers=cfg.training.num_workers,
+                                         prefetch=cfg.training.prefetch_factor,
+                                         worker_mode=cfg.training.worker_mode, skip_errors=True)
+        for batch in batch_iter:
+            # per-batch resilience, as the JAX trainers have it
+            try:
+                if device_cache is None:
+                    batch = to_device(batch)
+                loss, objs = current["step_fn"](batch)
+                losses.append(loss)          # a device scalar: no read-back a step
+                state.step += 1
+            except Exception as e:  # noqa: BLE001
+                skipped += 1
+                print(f"warning: skipped batch ({type(e).__name__}: {e})")
+                if skipped > max(4, len(losses)):
+                    raise
+        if skipped:
+            print(f"epoch {epoch}: skipped {skipped} failing batches")
+        if not losses:
+            raise SystemExit("no batches — dataset smaller than batch size?")
+        mean_loss = float(np.mean([float(v) for v in losses]))
+        state.epoch = epoch
+        state.history.append({"epoch": epoch, "loss": mean_loss, "lr": lr})
+        for k, v in objs.items():
+            state.history[-1][f"loss_{k}"] = float(v)
+        print(f"epoch {epoch}: loss {mean_loss:.5f} ({len(losses)} steps, "
+              f"{time.time() - t_start:.0f}s)")
+
+        if len(val_ds) >= bs:
+            if val_cache is not None:
+                val_iter = val_cache.iterate(bs, host_rng, shuffle=False)
+            else:
+                val_iter = (to_device(vb) for vb in iterate_batches(
+                    val_ds, bs, host_rng, shuffle=False, fraction=1.0, collate=staging))
+            val_losses = [float(current["eval_fn"](vb)[0]) for vb in val_iter]
+            if val_losses:
+                state.history[-1]["val_loss"] = float(np.mean(val_losses))
+                print(f"epoch {epoch}: val_loss {state.history[-1]['val_loss']:.5f}")
+
+        last_epoch = epoch == cfg.training.num_epochs - 1
+        if visualize is not None and (
+                (epoch + 1) % cfg.output.generate_visualizations_every == 0 or last_epoch):
+            state.history[-1].update(visualize(epoch))
+        state.model_state = model.state_dict()
+        state.opt_state = current["opt"].state_dict()
+        best_val = end_of_epoch_outputs(out_dir, state, cfg, epoch, last_epoch, best_val)
+    return state

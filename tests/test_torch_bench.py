@@ -99,15 +99,19 @@ def test_timeit_chain_windows_and_slope():
     assert len(calls) > 1 + 2 + 2 * (2 + 6)        # the probe scaled the windows up
 
 
-def test_timeit_chain_redoes_a_stalled_pair():
+def test_timeit_chain_redoes_a_stalled_pair(monkeypatch):
     """A stall in a pair's short window makes its slope negative: that pair
-    is measured again, and no negative time comes back."""
+    is measured again, and no negative time comes back. The clock is a fake
+    that each step advances, so no load on the host moves the windows."""
     calls = []
+    clock = [0.0]
 
     def step(state):
         calls.append(None)
-        time.sleep(0.2 if len(calls) == 4 else 0.002)   # the first pair's short window
+        clock[0] += 0.2 if len(calls) == 4 else 0.002   # the first pair's short window
         return state + 1
+
+    monkeypatch.setattr(_timing.time, "perf_counter", lambda: clock[0])
 
     dt = _timing.timeit_chain(step, torch.zeros(3), n1=2, n2=6, warmup=1, repeats=1,
                               target_s=0.0)
@@ -256,3 +260,36 @@ def test_bench_progressive_run(specs):
         wall, iou, kp = bench_progressive.run(mode, tspec, data, SIZE, 2, (1, 2),
                                                    tstages.test_schedule(2))
         assert wall > 0 and 0.0 <= iou <= 1.0 and np.isfinite(kp)
+
+
+@pytest.mark.parametrize("backbone", ["resnet50", "resnet50_gn"])
+def test_bench_singleview_train_step_has_the_jax_keys(specs, backbone):
+    """configs 4b/4c on the CPU at a small size: the JAX bench's keys, and mfu."""
+    res = bench_all.bench_singleview_train_step(specs[1], backbone, batches=(2,), res=32,
+                                                repeats=1, target_s=0.0)
+    # the keys of the JAX bench's result (tools/bench_all.py::bench_singleview_train_step) and mfu
+    assert {"backbone", "resolution", "losses", "batch2_ms", "batch2_images_per_sec",
+            "batch2_mfu", "mfu"} <= set(res) and res["backbone"] == backbone
+    assert res["batch2_ms"] > 0 and res["batch2_images_per_sec"] > 0 and 0 < res["mfu"] < 1
+    json.dumps(res)
+
+
+def test_bench_multiview_train_step_has_the_jax_keys(specs):
+    res = bench_all.bench_multiview_train_step(specs[1], batches=(1,), res=32, repeats=1,
+                                               target_s=0.0)
+    assert {"backbone", "resolution", "views", "losses", "batch1_ms", "batch1_frames_per_sec",
+            "batch1_view_images_per_sec", "mfu"} <= set(res)
+    assert res["batch1_view_images_per_sec"] == pytest.approx(4 * res["batch1_frames_per_sec"])
+
+
+def test_input_pipeline_mode_runs_on_the_cpu(tmp_path, capsys):
+    """One mode of the port's input-pipeline bench in this process, on a
+    replicAnt folder it writes at 32²."""
+    from smilify_tpu_torch.tools import bench_input_pipeline as bip
+
+    pkl, folder = bip.write_data(tmp_path, 6, 32)
+    for mode in ("synthetic", "cached_staged"):
+        bip.main(["--mode", mode, "--data", folder, "--model-pkl", pkl, "--res", "32",
+                  "--batch", "2", "--steps", "2", "--device", "cpu"])
+        rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert rec["mode"] == mode and rec["step_ms"] > 0 and rec["setup_s"] > 0

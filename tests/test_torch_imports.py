@@ -206,3 +206,25 @@ def test_serving_entry_points_raise_without_cuda(monkeypatch, tmp_path):
             call()
     loaded = run_inference.load_model_from_checkpoint(ckpt, device="cpu")[0]
     assert next(loaded.parameters()).device.type == "cpu"
+
+
+def test_training_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """The trainers, bench_all's train-step configs and the input-pipeline
+    bench default to the card and raise without one, before they touch
+    their data."""
+    from smilify_tpu_torch.cli import train_multiview, train_pointnet, train_regressor
+    from smilify_tpu_torch.tools import bench_all, bench_input_pipeline
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    data = ["--model", str(tmp_path / "m.pkl"), "--data-path", str(tmp_path)]
+    calls = [
+        lambda: train_regressor.main(data),
+        lambda: train_multiview.main(data),
+        lambda: train_pointnet.main(["--model", str(tmp_path / "m.pkl")]),
+        lambda: bench_all.main(["--only", "config4b", "config4c", "config5c"]),
+        lambda: bench_input_pipeline.main(["--work", str(tmp_path)]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert not any(tmp_path.iterdir())
