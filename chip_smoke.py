@@ -52,7 +52,17 @@ J=55, B=5, made from a seed) and checks their results:
     ``cli.run_inference`` on its checkpoint; ``cli.train_pointnet``; and the
     input-pipeline bench's synthetic, serial, threaded and cached_staged
     modes. The training path reaches no kernel; its launch counts are read
-    and must stay 0.
+    and must stay 0;
+  * slice 5 (phase 13): configs 4 and 5a exported by ``serve.py`` with a
+    symbolic batch, loaded in a fresh process that imports only torch and
+    ``smilify_tpu_torch.serve`` and served at B=1/8/128 (5a: 1/8) against
+    the live model, ``cli.export_serving --verify`` and ``--shard-data``,
+    ``cli.run_inference --shard`` against the run without it; then, through ``torch.distributed.run`` of this script's rank role
+    (``--scaleout-rank BACKEND DIR``), one rank over NCCL and two ranks of
+    the one card over gloo: the frame-sharded fit (K1/K2 and K3/K4 on
+    every rank, launched as often as in the unsharded fit), the clip- and
+    grid-sharded corpus fitters, ``ShardedStageManager`` and config 4b's
+    data-parallel train step, each against its single-process counterpart.
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after. Imports nothing of JAX or of the JAX package ``smilify_tpu``.
@@ -91,6 +101,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -1890,6 +1901,569 @@ def training_phase(toy, dev, card):
     return out
 
 
+# phase 13, slice 5 on the card. (a) serving export: config-4 and config-5a
+# checkpoints (phase 11's widths, zero kernels drawn from a seed) exported
+# with a symbolic batch for cuda, loaded in a fresh process that imports only
+# torch and the serving module, B=1/8/128 (5a: 1/8) held to the live model;
+# export_serving --verify, and --shard-data over the one card. (b) one rank
+# on NCCL through torch.distributed.run and (c) two ranks on the one card
+# over gloo: the sharded fitters against their unsharded counterparts and
+# config 4b's data-parallel train step against the single-process one
+EXPORT_ATOL = 1e-4                 # the artifact against the live model (export_serving --verify)
+EXPORT_BATCHES = {"config4": (1, 8, 128), "config5a": (1, 8)}
+EXPORT_TIMED = (8, 128)            # config 4's artifact against the live model, images/s
+EXPORT_REPS = 10
+SCALE_FRAMES, SCALE_CAP = 10, 800
+SCALE_CLIPS = 4
+SCALE_DDP_B = 128
+# the JAX tests' gates (tests/test_fitter_frames.py, test_fitter_batch.py,
+# test_fitter3d.py): loss trajectory (rtol, atol), end parameters (rtol, atol)
+SCALE_SEQ_TOL = ((1e-3, 1e-6), (3e-3, 3e-3))
+SCALE_CLIPS_TOL = ((2e-4, 1e-6), (3e-3, 1e-3))
+SCALE_GRID_TOL = ((1e-3, 1e-6), (3e-3, 3e-3))
+# GridShardedFitter 1 × 2 on two ranks of the card is held to the JAX gate
+# against BatchedFitter with the frames a launch of a rank (the clips in
+# halves): the raster's and the products' float sums change with the frames
+# a launch, and Adam turns gradients that are rounding noise (the leaf
+# joints' log_beta_scales, fed by 2 frames a clip) into steps of ±lr, so
+# BatchedFitter at 8 frames a launch lands ~7× the parameter gate from the
+# same fit at 4 (logged beside the check). A planted fault, the frame-mean
+# terms without their 1/Df, must land outside the gate
+SCALE_REG_TOL = ((1e-4, 1e-7), (3e-3, 3e-3))
+# the two-stage schedule of tests/test_fitter_frames.py (stage 0 torso only)
+SCALE_SCHEDULE = (
+    dict(num_iters=3, lr=1e-2, w_j2d=1.0, w_reproj=0.0, w_betas=0.0, w_pose=0.0, w_limit=0.0,
+         w_splay=0.0, w_temp=0.0),
+    dict(num_iters=4, lr=1e-2, w_j2d=1.0, w_reproj=0.5, w_betas=0.1, w_pose=0.01, w_limit=0.01,
+         w_splay=0.01, w_temp=0.5),
+)
+SCALE_RANK_TIMEOUT = 300
+DDP_STATS_TOL_2RANKS = 1e-6        # 2 × 64 against 128: the running statistics, relative
+DDP_RATE_STEPS = 5
+
+
+def _export_checkpoints(toy, work):
+    """Config-4 and config-5a checkpoints (ResNet-50 + IEF 256 × 4 × 3 at
+    224², bf16 backbone; 5a with 4 views) written by save_checkpoint."""
+    from smilify_tpu_torch.models.weight_port import build_model
+    from smilify_tpu_torch.tools.synthetic_data import write_model_pkl
+    from smilify_tpu_torch.train.config import load_config, resolve_model_spec
+    from smilify_tpu_torch.train.trainer import TrainState, save_checkpoint
+
+    pkl = write_model_pkl(str(work / "stick_width.pkl"), toy)
+    ckpts = {}
+    for label, mode in (("config4", "single_view"), ("config5a", "multi_view")):
+        cfg = load_config(None, overrides={
+            "smal_model.smal_file": pkl, "model.backbone_name": "resnet50",
+            "model.input_resolution": SERVE_RES, "model.transformer_depth": 4,
+            "model.transformer_heads": 8, "model.transformer_dim_head": 32,
+            "model.transformer_mlp_dim": 1024, "model.transformer_ief_iters": 3,
+            "multiview.num_views_to_use": SERVE_MV_VIEWS,
+            "training.use_mixed_precision": True}, mode=mode)
+        rcfg = cfg.regressor_config(resolve_model_spec(cfg, device="cpu"))
+        torch.manual_seed(0)
+        model = perturb_zero_params(build_model(rcfg, img_size=SERVE_RES))
+        ckpts[label] = save_checkpoint(str(work / label), TrainState(model.state_dict()), cfg,
+                                       "final_model")
+    return ckpts
+
+
+def export_inputs(label, batch):
+    """The serving inputs of ``label`` at ``batch``, from a seed (numpy): the
+    fresh process and this one make the same."""
+    rng = np.random.RandomState(1000 * batch + (5 if label == "config5a" else 4))
+    if label == "config4":
+        return (rng.rand(batch, SERVE_RES, SERVE_RES, 3).astype(np.float32),)
+    V = SERVE_MV_VIEWS
+    mask = np.ones((batch, V), bool)
+    mask[0, -1] = False
+    return (rng.rand(batch, V, SERVE_RES, SERVE_RES, 3).astype(np.float32), mask,
+            np.tile(np.arange(V, dtype=np.int32), (batch, 1)))
+
+
+def _rate(fn, batch, reps=EXPORT_REPS):
+    """Items a second of ``fn()`` over ``reps`` calls after two warm-ups."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return batch * reps / (time.perf_counter() - t0)
+
+
+def serve_fresh(artifacts, out_npz):
+    """The fresh process's body: only torch and the serving module (TF32
+    off, as every entry point of the port sets it)."""
+    import smilify_tpu_torch.serve as serve
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    outs, rates = {}, {}
+    for label, path in artifacts.items():
+        model = serve.load_serving_artifact(path)
+        for b in EXPORT_BATCHES[label]:
+            inputs = tuple(torch.from_numpy(a).to("cuda") for a in export_inputs(label, b))
+            got = model(*inputs)
+            outs.update({f"{label}_{b}_{k}": v.float().cpu().numpy() for k, v in got.items()})
+            if label == "config4" and b in EXPORT_TIMED:
+                rates[b] = _rate(lambda: model(*inputs), b)
+    np.savez(out_npz, **outs)
+    loaded = sorted(n for n in sys.modules if n.startswith("smilify_tpu"))
+    print(json.dumps({"rates": rates, "modules": loaded}), flush=True)
+
+
+def serving_export_phase(toy, dev, card):
+    """(a): export, load in a fresh process, serve B=1/8/128 from one
+    symbolic artifact against the live model; --verify; --shard-data."""
+    from smilify_tpu_torch import serve
+    from smilify_tpu_torch.cli import export_serving
+    from smilify_tpu_torch.cli.run_inference import load_model_from_checkpoint
+
+    work = ROOT / "build" / "smoke_serving_export"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    ckpts = _export_checkpoints(toy, work)
+    arts, out = {}, {}
+    for label, ckpt in ckpts.items():
+        arts[label] = str(work / f"{label}.pt2z")
+        t0 = time.perf_counter()
+        if label == "config4":
+            meta = export_serving.main(["--checkpoint", ckpt, "--output", arts[label],
+                                        "--platforms", "cuda", "--verify"])
+        else:
+            meta = serve.export_serving_artifact(ckpt, arts[label], platforms=("cuda",))
+        secs = time.perf_counter() - t0
+        out[label] = {"artifact_bytes": meta["artifact_bytes"], "export_s": secs,
+                      "verify_max_abs": meta.get("verify_max_abs")}
+        log(f"  {label}: exported with a symbolic batch in {secs:.1f} s, "
+            f"{meta['artifact_bytes']:,} bytes; outputs {meta['output_keys']}"
+            + (f"; export_serving --verify max |Δ| {meta['verify_max_abs']:.3e}"
+               if "verify_max_abs" in meta else ""))
+        check(meta["batch_size"] == "symbolic", f"{label}: the artifact's batch is not symbolic")
+    meta = export_serving.main(["--checkpoint", ckpts["config4"], "--output",
+                                str(work / "config4_sharded.pt2z"), "--batch", "8",
+                                "--platforms", "cuda", "--shard-data", "--verify"])
+    check(meta["data_sharded"] and meta["n_devices"] == torch.cuda.device_count(),
+          f"--shard-data: n_devices {meta['n_devices']}")
+    out["shard_data"] = {"n_devices": meta["n_devices"], "verify_max_abs": meta["verify_max_abs"]}
+    log(f"  export_serving --shard-data --batch 8: {meta['n_devices']} card(s), --verify max |Δ| "
+        f"{meta['verify_max_abs']:.3e}")
+
+    code = ("import sys, json; sys.path.insert(0, {root!r}); import chip_smoke; "
+            "chip_smoke.serve_fresh({arts!r}, {npz!r})").format(
+        root=str(ROOT), arts=arts, npz=str(work / "served.npz"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=600, cwd=str(ROOT))
+    check(proc.returncode == 0, f"the fresh serving process failed:\n{proc.stderr[-3000:]}")
+    fresh = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"  fresh process ({time.perf_counter() - t0:.1f} s): modules of the package it "
+        f"imported {fresh['modules']}")
+    check(fresh["modules"] == ["smilify_tpu_torch", "smilify_tpu_torch.serve"],
+          f"the serving process imported {fresh['modules']}")
+    served = dict(np.load(work / "served.npz"))
+    for label, ckpt in ckpts.items():
+        model, cfg, rcfg, spec, _ = load_model_from_checkpoint(ckpt, device=dev)
+        predict = serve.build_predict_fn(model, rcfg, spec, cfg.mode == "multi_view")
+        gaps = {}
+        for b in EXPORT_BATCHES[label]:
+            inputs = tuple(torch.from_numpy(a).to(dev) for a in export_inputs(label, b))
+            with torch.no_grad():
+                live = predict(*inputs)
+            gaps[b] = max(float(np.abs(served[f"{label}_{b}_{k}"] - v.float().cpu().numpy()).max())
+                          for k, v in live.items())
+            check(sorted(k for k in served if k.startswith(f"{label}_{b}_"))
+                  == sorted(f"{label}_{b}_{k}" for k in live), f"{label} B={b}: output keys")
+            if label == "config4" and b in EXPORT_TIMED:
+                with torch.no_grad():
+                    out[label][f"live_b{b}_images_per_s"] = _rate(lambda: predict(*inputs), b)
+                out[label][f"artifact_b{b}_images_per_s"] = fresh["rates"][str(b)]
+        out[label]["max_abs_vs_live"] = gaps
+        log(f"  {label}: the artifact against the live model, max |Δ| over every output key by "
+            f"batch {gaps} (gate {EXPORT_ATOL:g})")
+        for b, g in gaps.items():
+            check(g <= EXPORT_ATOL, f"{label} B={b}: the artifact is {g:.3e} from the live model")
+        del model, predict
+        torch.cuda.empty_cache()
+    out["run_inference_shard"] = run_inference_shard(toy, dev, ckpts["config4"], work)
+    c4 = out["config4"]
+    log(f"  config4 images/s ({card}; logged, not gated): artifact "
+        + ", ".join(f"B={b} {c4[f'artifact_b{b}_images_per_s']:.1f}" for b in EXPORT_TIMED)
+        + "; live model " + ", ".join(f"B={b} {c4[f'live_b{b}_images_per_s']:.1f}"
+                                      for b in EXPORT_TIMED))
+    return out
+
+
+def run_inference_shard(toy, dev, ckpt, work):
+    """run_inference --shard (the model replicated on every visible card,
+    strided shares of each batch) against the run without it, on 16
+    replicAnt frames at 224² from the config-4 checkpoint."""
+    from smilify_tpu_torch.cli import run_inference
+    from smilify_tpu_torch.tools.synthetic_data import write_replicant_sequence
+
+    folder, _ = write_replicant_sequence(str(work / "seq"), toy, SERVE_FRAMES, SERVE_RES,
+                                         layout="unreal")
+    runs = {}
+    for label, extra in (("one", []), ("shard", ["--shard"])):
+        t0 = time.perf_counter()
+        runs[label] = run_inference.main(["--checkpoint", ckpt, "--data-path", folder,
+                                          "--device", dev.type] + extra)
+        runs[label + "_s"] = time.perf_counter() - t0
+    n = torch.cuda.device_count()
+    gap = max(float(np.abs(runs["shard"][k] - v).max()) / max(1.0, float(np.abs(v).max()))
+              for k, v in runs["one"].items())
+    # one card: the same batches; several: bf16 convolutions of smaller shares
+    gate = SERVE_FP32_TOL if n == 1 else SERVE_BF16_TOL
+    log(f"  run_inference --shard over {n} card(s): {runs['shard_s']:.2f} s against "
+        f"{runs['one_s']:.2f} s, predictions max |Δ| / max(1, |one|) {gap:.3e} (gate {gate:g})")
+    check(sorted(runs["shard"]) == sorted(runs["one"]) and gap <= gate,
+          f"run_inference --shard: {gap:.3e} from the run without it")
+    return {"cards": n, "seconds": runs["shard_s"], "seconds_one": runs["one_s"], "gap": gap}
+
+
+def scaleout_launch(nproc, backend, work):
+    """``torch.distributed.run`` of this script's rank role on ``nproc``
+    ranks of the one card; every rank's results."""
+    for p in work.glob(f"scaleout_{backend}_*.json"):
+        p.unlink()
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={nproc}", str(ROOT / "chip_smoke.py"), "--scaleout-rank",
+           backend, str(work)]
+    t0 = time.perf_counter()
+    # cuBLAS's deterministic workspace, for the registration check's
+    # deterministic algorithms (set before the ranks start cuBLAS)
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=SCALE_RANK_TIMEOUT,
+                          cwd=str(ROOT), env=env)
+    secs = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        if line.startswith(("  ", "rank")):
+            log("  " + line)
+    check(proc.returncode == 0, f"{nproc} rank(s) over {backend} failed ({proc.returncode}):\n"
+                                f"{proc.stdout[-3000:]}\n{proc.stderr[-4000:]}")
+    outs = [json.loads((work / f"scaleout_{backend}_{r}.json").read_text()) for r in range(nproc)]
+    log(f"  {nproc} rank(s) over {backend}: {secs:.1f} s, launch included")
+    return outs, secs
+
+
+def _traj_params_gap(traj, ref_traj, params, ref_params, tol, what, gated=True):
+    """Hold a fit's trajectory and end parameters to the reference's (with
+    ``gated=False`` only measure the gaps)."""
+    (t_rtol, t_atol), (p_rtol, p_atol) = tol
+    traj, ref_traj = np.asarray(traj), np.asarray(ref_traj)
+    check(len(traj) == len(ref_traj), f"{what}: {len(traj)} steps against {len(ref_traj)}")
+    traj_gap = float(np.max(np.abs(traj - ref_traj) / (t_atol + t_rtol * np.abs(ref_traj))))
+    worst = {}
+    for k, a in params.items():
+        a, b = a.detach().cpu().double(), getattr(ref_params, k).detach().cpu().double()
+        worst[k] = float(torch.max(torch.abs(a - b) / (p_atol + p_rtol * torch.abs(b))))
+    p_gap = max(worst.values())
+    log(f"    {what}: trajectory at {traj_gap:.3f} of its gate (rtol {t_rtol:g}, atol {t_atol:g}), "
+        f"end parameters at {p_gap:.3f} of theirs (rtol {p_rtol:g}, atol {p_atol:g}; worst "
+        f"{max(worst, key=worst.get)})")
+    if gated:
+        check(traj_gap <= 1.0, f"{what}: loss trajectory off the reference's")
+        check(p_gap <= 1.0, f"{what}: end parameters off the reference's")
+    return {"traj_of_gate": traj_gap, "params_of_gate": p_gap}
+
+
+def _fit_traj(fitter):
+    from smilify_tpu_torch.fitter.stages import StageWeights
+
+    traj = []
+    fitter.fit([StageWeights(**w) for w in SCALE_SCHEDULE], chunk=2,
+               callback=lambda s, i, loss, o: traj.append(float(loss)))
+    torch.cuda.synchronize()
+    return traj
+
+
+def scaleout_sequence(spec, dev, rank, world):
+    """The frame-sharded fit of SCALE_FRAMES frames at 512² over a
+    ``('frames',)`` mesh of every rank, exact and capped, against SmalFitter
+    on the card; the raster launches of each."""
+    from smilify_tpu_torch.fitter.fitter import FitParams, SmalFitter, synthetic_fit_data
+    from smilify_tpu_torch.fitter.fitter_frames import ShardedSequenceFitter
+    from smilify_tpu_torch.train.multihost import make_mesh
+
+    data = synthetic_fit_data(spec, SCALE_FRAMES, SIZE)
+    mesh = make_mesh((world,), ("frames",), dev)
+    out = {}
+    for mode, cap in (("exact", None), ("capped", SCALE_CAP)):
+        zero_counts()
+        ref = SmalFitter(spec, data, SIZE, approx_max_faces=cap, device=dev)
+        ref_traj = _fit_traj(ref)
+        ref_counts = read_counts()
+        zero_counts()
+        t0 = time.perf_counter()
+        sharded = ShardedSequenceFitter(spec, data, SIZE, mesh=mesh, approx_max_faces=cap,
+                                        device=dev)
+        traj = _fit_traj(sharded)
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+        full = sharded.gathered_params()
+        log(f"rank {rank}: frame-sharded fit, {mode}: {sharded.n_local} of {sharded.n_frames} "
+            f"frames on this rank, {secs:.2f} s; raster launches {counts}, unsharded {ref_counts}")
+        gaps = _traj_params_gap(traj, ref_traj, {k: getattr(full, k) for k in FitParams.fields()},
+                                ref.params, SCALE_SEQ_TOL, f"rank {rank}: frame-sharded {mode}")
+        used = ("exact_fwd", "exact_bwd") if cap is None else ("worklist_fwd", "worklist_bwd")
+        check(all(counts[k] == ref_counts[k] > 0 for k in used)
+              and all(counts[k] == 0 for k in counts if k not in used),
+              f"rank {rank}: frame-sharded {mode} launched {counts}, the unsharded fit {ref_counts}")
+        out[mode] = dict(gaps, launches=counts, seconds=secs)
+    return out
+
+
+def scaleout_corpus(spec, dev, rank, mesh_shape):
+    """ShardedBatchedFitter (1-D) and GridShardedFitter on ``mesh_shape``
+    over SCALE_CLIPS clips of one frame a ``frames`` rank at 512², against
+    BatchedFitter with the frames a launch of a rank (its clips cut into
+    as many launches as the mesh has ``frames`` ranks); with more than one
+    such rank, also the planted fault."""
+    from smilify_tpu_torch.fitter import fitter_batch
+    from smilify_tpu_torch.fitter.fitter import FitData, FitParams, synthetic_fit_data
+    from smilify_tpu_torch.fitter.fitter_batch import (
+        BatchedFitter,
+        GridShardedFitter,
+        ShardedBatchedFitter,
+    )
+    from smilify_tpu_torch.train.multihost import make_mesh
+
+    n = mesh_shape[1]
+    flat = synthetic_fit_data(spec, SCALE_CLIPS * n, SIZE, seed=7)
+    data = FitData(rgb=None, **{k: getattr(flat, k).reshape((SCALE_CLIPS, n) + getattr(flat, k).shape[1:])
+                                for k in ("sil", "joints", "visibility")})
+
+    def batched(clips):
+        fitter = BatchedFitter(spec, FitData(rgb=None, sil=data.sil[clips],
+                                             joints=data.joints[clips],
+                                             visibility=data.visibility[clips]), SIZE, device=dev)
+        return _fit_traj(fitter), {k: getattr(fitter.params, k) for k in FitParams.fields()}
+
+    cut = SCALE_CLIPS // n
+    parts = [batched(slice(g * cut, (g + 1) * cut)) for g in range(n)]
+    ref_traj = list(np.sum([t for t, _ in parts], axis=0))
+    ref = FitParams(**{k: torch.cat([p[k] for _, p in parts]) for k in FitParams.fields()})
+    out = {}
+    if n > 1:
+        one_traj, one = batched(slice(None))
+        out["one_launch"] = _traj_params_gap(
+            one_traj, ref_traj, one, ref, SCALE_GRID_TOL,
+            f"rank {rank}: BatchedFitter at {SCALE_CLIPS * n} frames a launch against "
+            f"{cut * n} (rounding, not gated)", gated=False)
+    fitters = [("grid", GridShardedFitter, mesh_shape, ("clips", "frames"), SCALE_GRID_TOL)]
+    if mesh_shape == (1, 1):
+        fitters.insert(0, ("clips", ShardedBatchedFitter, (1,), ("clips",), SCALE_CLIPS_TOL))
+    for name, cls, shape, axes, tol in fitters:
+        zero_counts()
+        fitter = cls(spec, data, SIZE, mesh=make_mesh(shape, axes, dev), device=dev)
+        traj = _fit_traj(fitter)
+        full = fitter.gathered_params()
+        log(f"rank {rank}: {cls.__name__} on {SCALE_CLIPS} clips × {n} frame(s), mesh "
+            f"{dict(zip(axes, shape))}: (clips, frames) {fitter.n_local} on this rank; raster "
+            f"launches {read_counts()}")
+        out[name] = _traj_params_gap(traj, ref_traj, {k: getattr(full, k) for k in FitParams.fields()},
+                                     ref, tol, f"rank {rank}: {type(fitter).__name__}")
+    if n > 1:
+        kept = fitter_batch._FRAME_MEAN_TERMS
+        fitter_batch._FRAME_MEAN_TERMS = frozenset()
+        try:
+            fitter = GridShardedFitter(spec, data, SIZE, mesh=make_mesh(mesh_shape, ("clips", "frames"), dev),
+                                       device=dev)
+            traj = _fit_traj(fitter)
+            full = fitter.gathered_params()
+        finally:
+            fitter_batch._FRAME_MEAN_TERMS = kept
+        planted = _traj_params_gap(traj, ref_traj, {k: getattr(full, k) for k in FitParams.fields()},
+                                   ref, SCALE_GRID_TOL,
+                                   f"rank {rank}: planted fault, no 1/Df (must fail)", gated=False)
+        check(max(planted.values()) > 1.0, "the grid check passed a planted fault (no 1/Df)")
+        out["planted_no_1_over_Df"] = planted
+    return out
+
+
+def scaleout_registration(dev, spec, rank, world):
+    """ShardedStageManager on phase 9's 8 targets against StageManager (2
+    stages of 6 steps at 3000 samples), both with torch's deterministic
+    algorithms: on the card the index gathers' backward adds in an order
+    that varies from run to run, and Adam turns that rounding into steps of
+    ±lr, so two default runs of the same manager part (their gap is logged
+    beside the comparison)."""
+    from smilify_tpu_torch.core.spec import toy_model_spec
+    from smilify_tpu_torch.fitter.fitter3d import (
+        Fit3DParams,
+        ShardedStageManager,
+        Stage,
+        StageManager,
+        pad_target_meshes,
+    )
+    from smilify_tpu_torch.tools.synthetic_data import posed_target_meshes
+
+    scan = toy_model_spec(75, 55, 5, seed=1, device=dev)
+    faces = scan.faces.cpu().numpy()
+    targets = pad_target_meshes([(v, faces) for v in posed_target_meshes(scan, 8, seed=7)],
+                                [f"scan{i}" for i in range(8)], device=dev)
+
+    from smilify_tpu_torch.train.multihost import make_mesh
+
+    def run(cls, **kw):
+        mgr = cls(spec, targets, seed=0, **kw)
+        mgr.add_stage(Stage("init", "init", n_its=6, lr=0.01))
+        mgr.add_stage(Stage("default", "default", n_its=6, lr=0.005))
+        traj = []
+        mgr.run(callback=lambda s, i, loss, o: traj.append(float(loss)), chunk=3)
+        torch.cuda.synchronize()
+        return mgr, traj
+
+    def fields(params):
+        return {k: getattr(params, k) for k in Fit3DParams.fields()}
+
+    once, once_traj = run(StageManager)
+    again, again_traj = run(StageManager)
+    (t_rtol, t_atol), (p_rtol, p_atol) = SCALE_REG_TOL
+    spread = max(abs(a - b) / (t_atol + t_rtol * abs(b)) for a, b in zip(again_traj, once_traj))
+    log(f"    rank {rank}: two default runs of StageManager: trajectories {spread:.3f} of the "
+        f"gate apart")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        ref, ref_traj = run(StageManager)
+        sharded, traj = run(ShardedStageManager, mesh=make_mesh((world,), ("scans",), dev))
+        full = sharded.gathered_params()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    out = _traj_params_gap(traj, ref_traj, fields(full), ref.params, SCALE_REG_TOL,
+                           f"rank {rank}: ShardedStageManager, 8 targets, deterministic algorithms")
+    return dict(out, default_runs_traj_of_gate=spread)
+
+
+def scaleout_ddp(spec, dev, rank, world):
+    """Config 4b's train step in DistributedDataParallel over every rank at
+    a global SCALE_DDP_B: float32 parity with the single-process step (rank
+    0 holds the reference), then bf16 images/s beside the undistributed step."""
+    import torch.distributed as dist
+
+    from smilify_tpu_torch.tools import bench_all
+    from smilify_tpu_torch.train.multihost import make_mesh
+    from smilify_tpu_torch.train.trainer import shard_batch
+
+    mesh = make_mesh((world,), ("data",), dev)
+
+    def setup(dtype, mesh_):
+        _, model, step, make_batch = bench_all.singleview_train_setup(spec, compute_dtype=dtype,
+                                                                      mesh=mesh_)
+        perturb_zero_params(model)
+        return model, step, make_batch(SCALE_DDP_B, np.random.RandomState(3))
+
+    def state(model):
+        return ({n: p.detach().clone() for n, p in model.named_parameters()},
+                {n: b.detach().clone() for n, b in model.named_buffers()
+                 if n.endswith(("running_mean", "running_var"))})
+
+    out = {}
+    ref = None
+    if rank == 0:
+        model, step, batch = setup(torch.float32, None)
+        start, _ = state(model)
+        loss, _ = step(batch)
+        params, stats = state(model)
+        ref = {"loss": float(loss), "start": start, "params": params, "stats": stats,
+               "grads": {n: p.grad.detach().clone() for n, p in model.named_parameters()}}
+        del model, step, batch
+        torch.cuda.empty_cache()
+    dist.barrier()
+    model, step, batch = setup(torch.float32, mesh)
+    loss, _ = step(shard_batch(mesh, batch))
+    params, stats = state(model)
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    del model, step, batch
+    torch.cuda.empty_cache()
+    if rank == 0:
+        names = list(ref["params"])
+        loss_gap = abs(float(loss) - ref["loss"]) / max(1.0, abs(ref["loss"]))
+        grad_gap = _global_rel_l2([grads[n] for n in names], [ref["grads"][n] for n in names])
+        decided = {n: ((grads[n] - ref["grads"][n]).abs() * 100 < ref["grads"][n].abs()) for n in names}
+        kept = sum(int(decided[n].sum()) for n in names) / sum(decided[n].numel() for n in names)
+        update_gap = _global_rel_l2(
+            [(params[n] - ref["start"][n]) * decided[n] for n in names],
+            [(ref["params"][n] - ref["start"][n]) * decided[n] for n in names])
+        stats_gap = max(float((stats[k] - ref["stats"][k]).abs().max())
+                        / float(ref["stats"][k].abs().max()) for k in ref["stats"])
+        stats_gate = DDP_STATS_TOL_2RANKS if world > 1 else TRAIN_STATS_TOL
+        log(f"rank 0: config 4b's train step, float32, {world} rank(s) × {SCALE_DDP_B // world} in "
+            f"DistributedDataParallel against one process at {SCALE_DDP_B}: loss {loss_gap:.3e} "
+            f"(gate {TRAIN_LOSS_TOL:g}), gradients {grad_gap:.3e} relative L2 (gate "
+            f"{TRAIN_GRAD_TOL:g}), update over the {100 * kept:.1f}% decided elements "
+            f"{update_gap:.3e} (gate {TRAIN_UPDATE_TOL:g}), BatchNorm running statistics "
+            f"{stats_gap:.3e} relative (gate {stats_gate:g})")
+        check(loss_gap <= TRAIN_LOSS_TOL, f"DDP step: loss gap {loss_gap:.3e}")
+        check(grad_gap <= TRAIN_GRAD_TOL, f"DDP step: gradient gap {grad_gap:.3e}")
+        check(update_gap <= TRAIN_UPDATE_TOL and kept >= TRAIN_DECIDED_MIN,
+              f"DDP step: update gap {update_gap:.3e} over {kept:.3f}")
+        check(stats_gap <= stats_gate, f"DDP step: statistics gap {stats_gap:.3e}")
+        out.update(loss=loss_gap, grads=grad_gap, update_decided=update_gap, decided_share=kept,
+                   bn_stats=stats_gap)
+        del ref
+        torch.cuda.empty_cache()
+    dist.barrier()
+
+    # the rates, bf16 (config 4b itself): undistributed on rank 0 alone, then every rank
+    if rank == 0:
+        model, step, batch = setup(torch.bfloat16, None)
+        out["undistributed_images_per_s"] = _rate(lambda: step(batch), SCALE_DDP_B, DDP_RATE_STEPS)
+        del model, step, batch
+        torch.cuda.empty_cache()
+    dist.barrier()
+    model, step, batch = setup(torch.bfloat16, mesh)
+    local = shard_batch(mesh, batch)
+    out["ddp_images_per_s"] = _rate(lambda: step(local), SCALE_DDP_B, DDP_RATE_STEPS)
+    if rank == 0:
+        log(f"rank 0: config 4b at B={SCALE_DDP_B}, bf16: {out['ddp_images_per_s']:.1f} images/s "
+            f"over {world} rank(s) in DistributedDataParallel, {out['undistributed_images_per_s']:.1f} "
+            f"undistributed (one card; logged, not gated)")
+    return out
+
+
+def scaleout_rank(backend, work):
+    """One rank of (b) or (c): torchrun's environment, the backend given."""
+    import torch.distributed as dist
+
+    from smilify_tpu_torch.bench import load_spec
+    from smilify_tpu_torch.train.multihost import maybe_initialize_multihost, rank_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    maybe_initialize_multihost(True, device="cuda", backend=backend)
+    dev = rank_device("cuda", backend)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    spec, _ = load_spec(device=dev)
+    out = {"rank": rank, "world": world, "backend": backend, "device": str(dev)}
+    t0 = time.perf_counter()
+    out["sequence"] = scaleout_sequence(spec, dev, rank, world)
+    out["corpus"] = scaleout_corpus(spec, dev, rank, (1, world))
+    if world == 1:
+        out["registration"] = scaleout_registration(dev, spec, rank, world)
+    out["ddp"] = scaleout_ddp(spec, dev, rank, world)
+    out["seconds"] = time.perf_counter() - t0
+    Path(work, f"scaleout_{backend}_{rank}.json").write_text(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def scaleout_phase(card):
+    """(b) one rank on NCCL, (c) two ranks on the one card over gloo."""
+    work = ROOT / "build" / "smoke_scaleout"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    out = {}
+    for nproc, backend in ((1, "nccl"), (2, "gloo")):
+        ranks, secs = scaleout_launch(nproc, backend, work)
+        out[f"{backend}_{nproc}"] = {"seconds": secs, "ranks": ranks}
+    log(f"  ({card})")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs an NVIDIA GPU")
@@ -1912,7 +2486,7 @@ def main():
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
 
-    log("[1/12] build")
+    log("[1/13] build")
     t0 = time.perf_counter()
     libs = _kernels.build_all()
     log(f"  built {', '.join(p.name for p in libs.values())} in {time.perf_counter() - t0:.1f} s")
@@ -1932,7 +2506,7 @@ def main():
     spec, spec_name = load_spec(device=dev)
     log(f"  spec: {spec_name}, B={spec.n_betas}")
 
-    log("[2/12] kernels against their plain versions at the driven paths' shapes")
+    log("[2/13] kernels against their plain versions at the driven paths' shapes")
     shape = source_constants(RASTER_CU.read_text(), FWD_SHAPE + BWD_SHAPE)
     log(f"  launch shapes (csrc/raster.cu): {shape}")
     raster = ("exact_fwd", "exact_bwd", "worklist_fwd", "worklist_bwd")
@@ -1951,7 +2525,7 @@ def main():
     for n_frames, size in ((1, SIZE),) + shapes:
         kernel_phase(spec, n_frames, size, dev, saturating=True)
     records.append(peak_phase(dev))
-    log("[3/12] main path: SmalFitter, 4 stages × 10 steps, 1 frame at 512²")
+    log("[3/13] main path: SmalFitter, 4 stages × 10 steps, 1 frame at 512²")
     data = synthetic_fit_data(spec, 1, SIZE)
     cover = float(data.sil.mean())
     log(f"  target silhouette covers {cover:.4f} of the image")
@@ -1996,35 +2570,35 @@ def main():
     log(f"  IoU of capped (cap {cap}) against exact on the exact fit's pose: {iou_cap:.4f}")
     check(iou_cap >= 0.99, "capped raster IoU against exact below 0.99")
 
-    log("[4/12] references")
+    log("[4/13] references")
     reference_phase(spec, dev)
 
-    log("[5/12] where the time goes: 1 and 10 frames")
+    log("[5/13] where the time goes: 1 and 10 frames")
     data10 = synthetic_fit_data(spec, 10, SIZE)
     for frames, d in ((1, data), (10, data10)):
         for mode, (mode_cap, _) in modes.items():
             profile_phase(spec, d, dev, f"{mode}, {frames} frame(s),", mode_cap)
 
-    log("[6/12] bench path: bench, bench_all configs 1, 3, 3b, 3c (short windows)")
+    log("[6/13] bench path: bench, bench_all configs 1, 3, 3b, 3c (short windows)")
     bench_counts = bench_phase(spec, spec_name, dev)
     records[4]["launches"] = bench_counts["fma_peak"]
 
-    log("[7/12] batched and progressive fitters, bench_corpus")
+    log("[7/13] batched and progressive fitters, bench_corpus")
     batched_phase(spec, spec_name, dev)
 
-    log("[8/12] fitter CLIs: optimize_to_joints (capped, exact, texture), optimize_corpus at 512²")
+    log("[8/13] fitter CLIs: optimize_to_joints (capped, exact, texture), optimize_corpus at 512²")
     cli_phase(spec, dev, card)
 
-    log("[9/12] 3D registration: 8 targets, 2 stages; bench_all config2")
+    log("[9/13] 3D registration: 8 targets, 2 stages; bench_all config2")
     registration_phase(spec, dev, card)
 
-    log("[10/12] data pipeline: synthesize_multiview (1,600 samples, 4 views at 96²), "
+    log("[10/13] data pipeline: synthesize_multiview (1,600 samples, 4 views at 96²), "
         "DeviceDataCache, HDF5")
     t0 = time.perf_counter()
     records[0]["data_pipeline"] = data_phase(spec, dev, card)
     log(f"  phase 10: {time.perf_counter() - t0:.1f} s")
 
-    log("[11/12] neural serving: configs 4/5a card vs CPU, run_inference, multi-view serving, "
+    log("[11/13] neural serving: configs 4/5a card vs CPU, run_inference, multi-view serving, "
         "bench_all configs 4/5a/5b, config 4's profile")
     t0 = time.perf_counter()
     serving = serving_phase(spec, dev, card)
@@ -2032,7 +2606,7 @@ def main():
     records[0]["serving_data"] = serving["multiview_data"]["k1"]
     log("serving " + json.dumps(serving))
 
-    log("[12/12] training: bench_all configs 4b/4c/5c and 4b's profile, one float32 step card "
+    log("[12/13] training: bench_all configs 4b/4c/5c and 4b's profile, one float32 step card "
         "vs CPU, a learning check from DeviceDataCache, train_regressor (cache and host "
         "pipeline) then run_inference, train_pointnet, the input-pipeline bench")
     t0 = time.perf_counter()
@@ -2040,6 +2614,21 @@ def main():
     log(f"  phase 12: {time.perf_counter() - t0:.1f} s")
     records[0]["training_data_launches"] = training["learning"]["k1_launches"]
     log("training " + json.dumps(training, default=float))
+
+    log("[13/13] slice 5: serving export (configs 4/5a, a fresh process, B=1/8/128); the "
+        "sharded fitters and config 4b's data-parallel step on 1 rank over NCCL and on 2 ranks "
+        "of the card over gloo")
+    t0 = time.perf_counter()
+    export = serving_export_phase(spec, dev, card)
+    log(f"  (serving export: {time.perf_counter() - t0:.1f} s)")
+    scale = scaleout_phase(card)
+    log(f"  phase 13: {time.perf_counter() - t0:.1f} s")
+    for rec in records[:4]:
+        mode = "exact" if rec["name"].startswith("exact") else "capped"
+        rec["scaleout_launches"] = {
+            f"{key.split('_')[0]}_rank{r['rank']}": r["sequence"][mode]["launches"][rec["name"]]
+            for key, run in scale.items() for r in run["ranks"]}
+    log("scaleout " + json.dumps({"export": export, "scaleout": scale}, default=float))
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}), flush=True)
@@ -2050,4 +2639,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--scaleout-rank"]:
+        scaleout_rank(sys.argv[2], sys.argv[3])     # one rank of phase 13 (b)/(c), under torchrun
+    else:
+        main()

@@ -12,9 +12,13 @@ Usage:
 
 The YAML file is read with PyYAML, imported when the file is parsed; where
 it is absent (the card's machine) build the stages in Python and call
-:func:`register`. Not ported yet: ``--shard`` and ``--multihost`` (the scan
-axis over several devices and hosts), which wait for the sharded stage
-manager.
+:func:`register`.
+
+``--shard`` cuts each batch's scans over the ranks of the process group
+(launch under torchrun; :class:`~smilify_tpu_torch.fitter.fitter3d.ShardedStageManager`):
+a batch is padded to a multiple of the rank count by repeating scans, the
+padding dropped from the npz, and rank 0 writes. ``--multihost`` starts the
+process group from the flag (torchrun's environment starts it anyway).
 """
 
 from __future__ import annotations
@@ -26,8 +30,6 @@ from typing import List
 
 import numpy as np
 import torch
-
-from smilify_tpu_torch._device import resolve_device
 
 
 def load_stages_from_yaml(path: str):
@@ -90,12 +92,19 @@ def _plot(mgr, out_dir: str) -> None:
 
 
 def register(spec, obj_paths: List[str], stages, results_dir: str, batch_size: int = 100,
-             num_samples: int = 3000, chunk: int = 10, callback=None):
+             num_samples: int = 3000, chunk: int = 10, callback=None, shard: bool = False):
     """The CLI's body: fit ``spec`` (on its device) to the ``.obj`` scans in
     batches of ``batch_size`` (-1 = all at once) through ``stages``; saves
     ``<results_dir>/batch_<b>/<last stage>.npz`` per batch and merges them
-    when there are several. Returns [the StageManager of each batch]."""
-    from smilify_tpu_torch.fitter.fitter3d import StageManager, pad_target_meshes
+    when there are several. ``shard``: each batch's scans over the ranks of
+    the process group (every rank calls this; rank 0 writes). Returns [the
+    StageManager of each batch]."""
+    from smilify_tpu_torch.fitter.fitter3d import (
+        ShardedStageManager,
+        StageManager,
+        pad_target_meshes,
+    )
+    from smilify_tpu_torch.train.multihost import is_primary, process_count
     from smilify_tpu_torch.utils.export import load_obj
 
     os.makedirs(results_dir, exist_ok=True)
@@ -109,8 +118,14 @@ def register(spec, obj_paths: List[str], stages, results_dir: str, batch_size: i
         for p in batch_paths:
             meshes.append(load_obj(p))
             names.append(os.path.splitext(os.path.basename(p))[0])
+        n_real = len(meshes)
+        if shard:
+            while len(meshes) % process_count():   # pad by cycling; dropped before export
+                i = len(meshes) % n_real
+                meshes.append(meshes[i])
+                names.append(f"_pad_{names[i]}")
         targets = pad_target_meshes(meshes, names, device=spec.device)
-        mgr = StageManager(spec, targets)
+        mgr = ShardedStageManager(spec, targets) if shard else StageManager(spec, targets)
         for st in stages:
             st.num_samples = num_samples
             st.loss_history = []
@@ -124,22 +139,23 @@ def register(spec, obj_paths: List[str], stages, results_dir: str, batch_size: i
 
         mgr.run(callback=cb, chunk=chunk)
         out_dir = os.path.join(results_dir, f"batch_{b}")
-        out = mgr.save_npz(out_dir, final_stage)
-        _plot(mgr, out_dir)
-        print(f"batch {b}: saved {out}")
+        if shard:   # a collective: every rank gathers, rank 0 writes
+            out = mgr.save_npz(out_dir, final_stage, keep=n_real)
+        elif is_primary():
+            out = mgr.save_npz(out_dir, final_stage)
+        if is_primary():
+            _plot(mgr, out_dir)
+            print(f"batch {b}: saved {out}")
         managers.append(mgr)
 
-    if len(batches) > 1:
+    if len(batches) > 1 and is_primary():
         merged = combine_stage_results(results_dir, final_stage, len(batches))
         print(f"merged → {merged}")
     return managers
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(
-        description="SMIL → target-mesh 3D registration",
-        epilog="Not ported yet: --shard and --multihost (the scan axis over several "
-               "devices and hosts).")
+    ap = argparse.ArgumentParser(description="SMIL → target-mesh 3D registration")
     ap.add_argument("--model", required=True)
     ap.add_argument("--mesh_dir", required=True)
     ap.add_argument("--yaml_src", required=True)
@@ -150,11 +166,20 @@ def main(argv=None):
     ap.add_argument("--iter-chunk", type=int, default=10,
                     help="optimization steps run back to back between loss read-backs "
                          "(1 = every step)")
+    ap.add_argument("--shard", action="store_true",
+                    help="cut each batch's scans over the ranks of the process group "
+                         "(launch under torchrun; a batch is padded to a multiple of the "
+                         "rank count by repeating scans, the repeats dropped from the npz)")
+    ap.add_argument("--multihost", action="store_true",
+                    help="start the process group (torchrun's or SLURM's environment starts "
+                         "it anyway); npz and plot writes are gated to rank 0")
     ap.add_argument("--device", default="cuda",
                     help="where the fit runs: cuda (default; raises without a card) or cpu")
     args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
+    from smilify_tpu_torch.cli.optimize_to_joints import setup_device
+
+    dev = setup_device(args)
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -170,7 +195,7 @@ def main(argv=None):
         raise SystemExit(f"no .obj files in {args.mesh_dir}")
     print(f"{len(obj_paths)} target meshes, {len(stages)} stages")
     register(spec, obj_paths, stages, results_dir, args.batch_size, args.num_samples,
-             args.iter_chunk)
+             args.iter_chunk, shard=args.shard)
     return results_dir
 
 

@@ -15,9 +15,15 @@ Usage:
 
 Every clip must load to the same (frames, H, W) shape — use ``--use-crop`` to
 square-crop to ``--crop-size`` and ``--max-frames`` to truncate video
-sequences to a common length. Not ported yet: ``--shard``, ``--shard-grid``
-and ``--multihost`` (clips and frames over several devices and hosts), which
-wait for the sharded fitters.
+sequences to a common length.
+
+Over several ranks (launch under torchrun, one rank a card): ``--shard``
+cuts the clips over every rank (:class:`~smilify_tpu_torch.fitter.fitter_batch.ShardedBatchedFitter`),
+``--shard-grid CxF`` clips and frames over a C×F mesh of the C·F ranks
+(:class:`~smilify_tpu_torch.fitter.fitter_batch.GridShardedFitter`). The
+corpus is padded by repeating clips to a multiple of the clip ranks, the
+padding dropped from the exports; rank 0 writes. ``--multihost`` starts the
+process group from the flag (torchrun's environment starts it anyway).
 """
 
 from __future__ import annotations
@@ -30,13 +36,14 @@ import time
 import numpy as np
 import torch
 
-from smilify_tpu_torch._device import resolve_device
 from smilify_tpu_torch.cli.optimize_to_joints import (
     frame_collage,
     frame_params,
+    gathered_params,
     load_priors,
     load_sequence,
     resolve_approx_max_faces,
+    setup_device,
 )
 
 
@@ -51,10 +58,7 @@ def _load_clip(seq: str, args, spec):
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(
-        description="batched SMIL corpus fitter",
-        epilog="Not ported yet: --shard, --shard-grid and --multihost (clips and frames "
-               "over several devices and hosts).")
+    ap = argparse.ArgumentParser(description="batched SMIL corpus fitter")
     ap.add_argument("--model", required=True, help="model .pkl file")
     ap.add_argument("--sequences", nargs="+", default=None,
                     help="dataset:name entries (all must share frame count and size)")
@@ -82,20 +86,38 @@ def main(argv=None):
     ap.add_argument("--iter-chunk", type=int, default=10,
                     help="optimization steps run back to back between loss read-backs "
                          "(1 = every step)")
+    ap.add_argument("--shard", action="store_true",
+                    help="cut the clips over the ranks of the process group (launch under "
+                         "torchrun; the corpus is padded by repeating clips to a multiple of "
+                         "the rank count, the padding dropped from the exports)")
+    ap.add_argument("--shard-grid", default=None, metavar="CxF",
+                    help="a 2-D ('clips', 'frames') mesh of the C·F ranks, e.g. 2x2: clips "
+                         "AND frames cut at once (long-clip corpora); the frame count must "
+                         "divide by F")
+    ap.add_argument("--multihost", action="store_true",
+                    help="start the process group (torchrun's or SLURM's environment starts "
+                         "it anyway); exports are written by rank 0")
     ap.add_argument("--device", default="cuda",
                     help="where the fit runs: cuda (default; raises without a card) or cpu")
     args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
+    dev = setup_device(args)
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
 
     from smilify_tpu_torch.core.spec import load_model_spec
     from smilify_tpu_torch.fitter.fitter import FitData
-    from smilify_tpu_torch.fitter.fitter_batch import BatchedFitter
+    from smilify_tpu_torch.fitter.fitter_batch import (
+        BatchedFitter,
+        GridShardedFitter,
+        ShardedBatchedFitter,
+        posed_clips,
+        sequence_params,
+    )
     from smilify_tpu_torch.fitter.stages import OPT_WEIGHTS, test_schedule
     from smilify_tpu_torch.render.rasterizer import auto_approx_max_faces
+    from smilify_tpu_torch.train.multihost import is_primary, make_mesh, process_count
     from smilify_tpu_torch.utils.export import ImageExporter
 
     spec = load_model_spec(args.model, align_symmetry=False, device=dev)
@@ -124,6 +146,20 @@ def main(argv=None):
             f"--crop-size and --max-frames to make them uniform"
         )
 
+    n_real = len(clips)
+    grid = None
+    if args.shard_grid:
+        grid = tuple(int(v) for v in args.shard_grid.lower().split("x"))
+        if grid[0] * grid[1] != process_count():
+            raise SystemExit(f"--shard-grid {args.shard_grid} needs {grid[0] * grid[1]} ranks, "
+                             f"the process group has {process_count()}")
+    if args.shard or grid:
+        pad_to = grid[0] if grid else process_count()
+        while len(clips) % pad_to:  # pad by cycling; padded fits are discarded
+            i = len(clips) % n_real
+            clips.append(clips[i])
+            clip_names.append(f"_pad_{clip_names[i]}")
+            clip_filenames.append(clip_filenames[i])
     S = len(clips)
     N, H, W = clips[0][1].shape
     print(f"Corpus: {S} clips x {N} frames  image {H}x{W}  model J={spec.n_joints}")
@@ -135,28 +171,41 @@ def main(argv=None):
 
     approx = resolve_approx_max_faces(args, (H, W),
                                       lambda size: auto_approx_max_faces(size, device=dev))
-    fitter = BatchedFitter(spec, data, (H, W), allow_limb_scaling=args.limb_scaling,
-                           pose_prior=pose_prior, shape_prior=shape_prior,
-                           approx_max_faces=approx, device=dev)
+    kwargs = dict(allow_limb_scaling=args.limb_scaling, pose_prior=pose_prior,
+                  shape_prior=shape_prior, approx_max_faces=approx, device=dev)
+    if grid:
+        print(f"sharding {S} clips ({n_real} real) × {N} frames over a {grid[0]}x{grid[1]} mesh")
+        fitter = GridShardedFitter(spec, data, (H, W),
+                                   mesh=make_mesh(grid, ("clips", "frames"), dev), **kwargs)
+    elif args.shard:
+        print(f"sharding {S} clips ({n_real} real) over {process_count()} rank(s)")
+        fitter = ShardedBatchedFitter(spec, data, (H, W), **kwargs)
+    else:
+        fitter = BatchedFitter(spec, data, (H, W), **kwargs)
 
     # one exporter over the flattened corpus: out_dir/<clip>/<frame>/st_ep.*
     # (single-frame clips skip the clip level — the layout of
     # optimize_to_joints: out_dir/<frame>/st_ep.*)
     flat_names = [
         clip_filenames[s][i] if N == 1 else os.path.join(clip_names[s], clip_filenames[s][i])
-        for s in range(S)
+        for s in range(n_real)
         for i in range(N)
     ]
     exporter = ImageExporter(out_dir, flat_names)
     schedule = test_schedule(max_stages=args.test_stages) if args.test else OPT_WEIGHTS
 
     def visualize(stage_id, epoch):
-        verts, joints3d = fitter.forward_frames()  # (S, N, V, 3), (S, N, J, 3)
+        # gathering a sharded fit's parameters is a collective: every rank
+        # joins, rank 0 alone renders and writes
+        params = gathered_params(fitter)
+        if not is_primary():
+            return
+        verts, joints3d = posed_clips(spec, params, args.limb_scaling)  # (S, N, V, 3), (S, N, J, 3)
         exporter.stage_id = stage_id
         exporter.epoch_name = str(epoch)
         faces = spec.faces.cpu().numpy()
-        for s in range(S):
-            p = fitter.sequence_params(s)
+        for s in range(n_real):
+            p = sequence_params(params, s)
             for i in range(N):
                 collage = frame_collage(spec, fitter.camera, verts[s, i], joints3d[s, i],
                                         p.fov[i], (H, W), rgb[s, i], sil[s, i], joints[s, i],

@@ -16,9 +16,14 @@ Usage:
 It runs on ``--device`` (default ``cuda``; it raises when there is no card)
 with the raster kernels of ``smilify_tpu_torch/csrc`` there, or on ``cpu``
 with their plain versions. Frames are read as PNG without imageio; other
-image formats need imageio, which the card's machine lacks. Not ported yet:
-``--shard-frames`` and ``--multihost`` (frames over several devices and
-hosts), which wait for the sharded fitters.
+image formats need imageio, which the card's machine lacks.
+
+``--shard-frames`` cuts the sequence's frames over the ranks of the process
+group (launch under torchrun, one rank a card:
+:class:`~smilify_tpu_torch.fitter.fitter_frames.ShardedSequenceFitter`); the
+frame count must divide by the rank count. ``--multihost`` starts the
+process group from the flag (torchrun's or SLURM's environment starts it
+anyway); the exports are written by rank 0.
 """
 
 from __future__ import annotations
@@ -89,6 +94,26 @@ def load_priors(args, spec, device):
     return pose, shape
 
 
+def setup_device(args) -> torch.device:
+    """The process group when ``--multihost`` or the launcher's environment
+    asks for it (its backend from ``--device``), then this rank's device
+    (``cuda:LOCAL_RANK``); ``--device`` itself in a single process."""
+    from smilify_tpu_torch.train.multihost import maybe_initialize_multihost, rank_device
+
+    dev = resolve_device(args.device)
+    if maybe_initialize_multihost(getattr(args, "multihost", False), device=dev):
+        dev = rank_device(dev)
+    return dev
+
+
+def gathered_params(fitter):
+    """The fitter's parameters over every frame or clip: a sharded fitter's
+    gathered from every rank (a collective), a single-device fitter's as
+    they are."""
+    gather = getattr(fitter, "gathered_params", None)
+    return gather() if gather is not None else fitter.params
+
+
 def frame_params(params, i: int) -> dict:
     """Frame ``i``'s parameters under the pkl names of the JAX exporter."""
     def host(x):
@@ -130,10 +155,7 @@ def frame_collage(spec, camera, verts, joints3d, fov, image_size, rgb, sil, join
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(
-        description="SMIL optimization fitter",
-        epilog="Not ported yet: --shard-frames and --multihost (frames over several "
-               "devices and hosts).")
+    ap = argparse.ArgumentParser(description="SMIL optimization fitter")
     ap.add_argument("--model", required=True, help="model .pkl file")
     ap.add_argument("--sequence", default="replicAnt:SMIL_09_synth.jpg",
                     help="dataset:name — replicAnt:<img>, badja:<seq>, stanfordextra:<img>")
@@ -172,25 +194,40 @@ def main(argv=None):
     ap.add_argument("--iter-chunk", type=int, default=10,
                     help="optimization steps run back to back between loss read-backs "
                          "(visualizations see end-of-chunk params; 1 = every step)")
+    ap.add_argument("--shard-frames", action="store_true",
+                    help="cut the frames over the ranks of the process group (launch under "
+                         "torchrun; per-frame params stay on their rank, the shared ones' "
+                         "gradients are all-reduced, the temporal pairs across ranks take a "
+                         "halo exchange; the frame count must divide by the rank count — "
+                         "use --image-range to trim)")
     ap.add_argument("--load-checkpoint", default=None, metavar="DIR",
                     help="reload per-frame st{N}_ep{M}.pkl params from a previous run "
                          "(reference fitter.load_checkpoint, fitter.py:352-371)")
     ap.add_argument("--checkpoint-stage", type=int, default=10)
     ap.add_argument("--checkpoint-epoch", default="0")
+    ap.add_argument("--multihost", action="store_true",
+                    help="start the process group (torchrun's or SLURM's environment starts "
+                         "it anyway); exports are written by rank 0")
     ap.add_argument("--device", default="cuda",
                     help="where the fit runs: cuda (default; raises without a card) or cpu")
     args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
+    dev = setup_device(args)
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
 
     from smilify_tpu_torch.core.spec import load_model_spec
-    from smilify_tpu_torch.fitter.fitter import FitData, SmalFitter, params_from_numpy
+    from smilify_tpu_torch.fitter.fitter import (
+        FitData,
+        SmalFitter,
+        params_from_numpy,
+        posed_frames,
+    )
     from smilify_tpu_torch.fitter.progressive import ProgressiveFitter
     from smilify_tpu_torch.fitter.stages import OPT_WEIGHTS, test_schedule
     from smilify_tpu_torch.render.rasterizer import auto_approx_max_faces
+    from smilify_tpu_torch.train.multihost import is_primary, process_count
     from smilify_tpu_torch.utils.export import ImageExporter, load_fitter_checkpoint
 
     spec = load_model_spec(args.model, align_symmetry=False, device=dev)
@@ -210,7 +247,12 @@ def main(argv=None):
                                       lambda size: auto_approx_max_faces(size, device=dev))
     kwargs = dict(allow_limb_scaling=args.limb_scaling, pose_prior=pose_prior,
                   shape_prior=shape_prior, approx_max_faces=approx, device=dev)
-    if args.progressive:
+    if args.shard_frames:
+        from smilify_tpu_torch.fitter.fitter_frames import ShardedSequenceFitter
+
+        print(f"sharding {len(filenames)} frames over {process_count()} rank(s)")
+        fitter = base = ShardedSequenceFitter(spec, data, (H, W), **kwargs)
+    elif args.progressive:
         scales = [int(s) for s in args.progressive.split(",")]
         print(f"progressive pyramid scales {scales}")
         fitter = ProgressiveFitter(spec, data, (H, W), scales=scales, **kwargs)
@@ -221,7 +263,8 @@ def main(argv=None):
     if args.load_checkpoint:
         ck = load_fitter_checkpoint(args.load_checkpoint, filenames,
                                     args.checkpoint_stage, args.checkpoint_epoch)
-        fitter.params = params_from_numpy(ck, device=dev)
+        full = params_from_numpy(ck, device=dev)
+        fitter.params = fitter.local_params(full) if args.shard_frames else full
         print(f"resumed params from {args.load_checkpoint} "
               f"(st{args.checkpoint_stage}_ep{args.checkpoint_epoch})")
 
@@ -229,8 +272,12 @@ def main(argv=None):
     schedule = test_schedule(max_stages=args.test_stages) if args.test else OPT_WEIGHTS
 
     def visualize(stage_id, epoch):
-        verts, joints3d = fitter.forward_frames()
-        params = fitter.params
+        # gathering a sharded fit's parameters is a collective: every rank
+        # joins, rank 0 alone renders and writes
+        params = gathered_params(fitter)
+        if not is_primary():
+            return
+        verts, joints3d = posed_frames(spec, params, args.limb_scaling)
         exporter.stage_id = stage_id
         exporter.epoch_name = str(epoch)
         faces = spec.faces.cpu().numpy()

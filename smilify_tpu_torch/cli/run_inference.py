@@ -18,6 +18,9 @@ Usage:
       --data-path <dir|h5|video> [--smooth-window 5] [--export-animation out.npz] \\
       [--render-dir out_frames] [--device cuda]
 
+``--shard`` splits each batch over every visible card, the model
+replicated on each (the JAX CLI's batches sharded over the local devices).
+
 On the card's machine, replicAnt frames must be PNG files (their ``.JPG``
 names may hold PNG data) and HDF5 stores cannot be read (no h5py there).
 """
@@ -25,6 +28,7 @@ names may hold PNG data) and HDF5 stores cannot be read (no h5py there).
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import os
 
@@ -35,8 +39,7 @@ from smilify_tpu_torch._device import resolve_device
 
 RENDER_CHUNK = 8   # single-view frames rendered between two host fetches
 LEFT_OUT = ("--video (an mp4 of the rendered frames) waits for utils/export.py::write_video, "
-            "which comes with the remaining tools; --shard (batches over several cards) waits "
-            "for the multi-device port.")
+            "which comes with the remaining tools.")
 
 
 def discover_checkpoint(path: str) -> str:
@@ -109,6 +112,14 @@ def predictor(model, rcfg, spec, multiview: bool):
             return decode_predictions(rcfg, raw, spec)
 
     return predict
+
+
+def _interleave(parts):
+    """Strided shares ``x[c::n]`` of a batch back into one array in order."""
+    out = np.empty((sum(len(p) for p in parts),) + parts[0].shape[1:], parts[0].dtype)
+    for c, p in enumerate(parts):
+        out[c::len(parts)] = p
+    return out
 
 
 def render_frame(spec, vtx, j3d, R, T, fov, res):
@@ -186,6 +197,10 @@ def main(argv=None):
     ap.add_argument("--sleap-predictions", default=None,
                     help=".slp/.h5 predictions for bbox_crop + keypoint overlays")
     ap.add_argument("--joint-lookup", default=None, help="sleap→model joint CSV")
+    ap.add_argument("--shard", action="store_true",
+                    help="split each batch over every visible card, the model replicated on "
+                         "each (the reference's 2-phase frame-sharded DDP pipeline, "
+                         "run_multiview_inference.py:664-930)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
@@ -219,15 +234,31 @@ def main(argv=None):
     print(f"inference over {n} frames ({kind}) on {dev}")
 
     is_mv = cfg.mode == "multi_view"
-    predict = predictor(model, rcfg, spec, is_mv)
+    predicts = [predictor(model, rcfg, spec, is_mv)]
+    devices = [dev]
+    if args.shard and dev.type == "cuda":
+        for c in range(1, torch.cuda.device_count()):
+            d = torch.device("cuda", c)
+            predicts.append(predictor(copy.deepcopy(model).to(d), rcfg, spec.to(d), is_mv))
+            devices.append(d)
+        print(f"sharding inference batches over {len(devices)} card(s)")
     staging = StagingCollator()
     keys = ("images", "view_mask", "camera_indices") if is_mv else ("image",)
     all_preds = []
     for i in range(0, n, args.batch_size):
         samples = [dataset[j] for j in range(i, min(n, i + args.batch_size))]
-        batch = staging.to_device(staging([{k: s[k] for k in keys} for s in samples]), dev)
-        preds = predict(batch)
-        all_preds.append({k: v.cpu().numpy() for k, v in preds.items()})
+        host = staging([{k: s[k] for k in keys} for s in samples])
+        if len(devices) == 1:
+            all_preds.append({k: v.cpu().numpy() for k, v in predicts[0](
+                staging.to_device(host, dev)).items()})
+            continue
+        # one share of the batch a card (the last shares may be short or empty)
+        shares = [{k: v[c::len(devices)] for k, v in host.items()} for c in range(len(devices))]
+        outs = [p({k: v.to(d) for k, v in share.items()})
+                for p, d, share in zip(predicts, devices, shares) if len(share[keys[0]])]
+        # the shares are strided: interleave them back into batch order
+        all_preds.append({k: _interleave([o[k].cpu().numpy() for o in outs])
+                          for k in outs[0]})
     traj = {k: np.concatenate([p[k] for p in all_preds]) for k in all_preds[0]}
 
     if args.smooth_window and args.smooth_window > 1:

@@ -5,7 +5,9 @@
         [--output-dir runs/multiview] [--resume NAME] [--device cuda]
 
 Trains on one device (``--device``, default ``cuda``; it raises without a
-card unless given ``cpu``) from a multi-view HDF5 store, which needs h5py
+card unless given ``cpu``), or data-parallel under torchrun or
+``--multihost`` as ``cli/train_regressor.py`` does, from a multi-view HDF5
+store, which needs h5py
 (the card's machine has none: there the multi-view samples come from
 ``data/synthetic.py::synthesize_multiview`` held in a ``DeviceDataCache``).
 The epoch loop, checkpoints and visualizations are the single-view
@@ -16,7 +18,6 @@ from __future__ import annotations
 
 import os
 
-from smilify_tpu_torch._device import resolve_device
 from smilify_tpu_torch.cli.train_regressor import (
     base_parser,
     init_model,
@@ -24,12 +25,14 @@ from smilify_tpu_torch.cli.train_regressor import (
     load_run_config,
     prepare_splits,
     set_float32_matmul,
+    setup_data_parallel,
 )
 
 
 def main(argv=None):
     args = base_parser("Train the multi-view SMIL regressor", "runs/multiview").parse_args(argv)
-    dev = resolve_device(args.device)
+    cfg = load_run_config(args, "multi_view")
+    dev, mesh, batch_size = setup_data_parallel(args, cfg)
     set_float32_matmul(dev)
 
     from smilify_tpu_torch.data.hdf5_dataset import MultiViewHDF5Dataset, collate_multiview
@@ -40,7 +43,6 @@ def main(argv=None):
     )
     from smilify_tpu_torch.train.trainer import TrainState, train_epochs, try_resume
 
-    cfg = load_run_config(args, "multi_view")
     spec = resolve_model_spec(cfg, device=dev)
     rcfg = cfg.regressor_config(spec)
     dataset = MultiViewHDF5Dataset(
@@ -84,8 +86,7 @@ def main(argv=None):
         TrainState(model.state_dict()), model,
         reset_ief_token_embedding=cfg.training.reset_ief_token_embedding)
     return train_epochs(model, cfg, apply_fn, make_loss, train_ds, val_ds,
-                        cfg.training.batch_size, dev, args.output_dir, state, start_epoch,
-                        visualize)
+                        batch_size, dev, args.output_dir, state, start_epoch, visualize, mesh)
 
 
 if __name__ == "__main__":

@@ -6,7 +6,12 @@
         [--output-dir runs/singleview] [--resume NAME] [--device cuda]
 
 Trains on one device (``--device``, default ``cuda``; it raises without a
-card unless given ``cpu``). The data: a replicAnt folder, a single- or
+card unless given ``cpu``), or data-parallel over the ranks of a process
+group: launched under torchrun (or with ``--multihost``), each rank a card,
+the model in ``DistributedDataParallel`` with its BatchNorms on the global
+batch, ``training.batch_size`` the global batch (rounded to a multiple of
+ranks × accumulation steps), checkpoints and plots written by rank 0
+(``train/trainer.py::train_epochs``). The data: a replicAnt folder, a single- or
 multi-view HDF5 store (HDF5 needs h5py) or the weighted multi-dataset mix,
 split with the config's seed, optionally cached decoded, augmented, and
 held on the device (``training.device_data_cache``). Checkpoints are
@@ -26,11 +31,6 @@ import time
 
 import numpy as np
 import torch
-
-from smilify_tpu_torch._device import resolve_device
-
-LEFT_OUT = "--multihost (training over several hosts) waits for the multi-device port (A20)."
-
 
 def parse_set_overrides(pairs):
     """``["a.b=1", "c.d=x"]`` → ``{"a.b": 1, "c.d": "x"}`` (values parsed as
@@ -166,7 +166,7 @@ def prepare_splits(cfg, dataset, kind, multiview: bool):
 
 
 def base_parser(description: str, output_dir: str) -> argparse.ArgumentParser:
-    ap = argparse.ArgumentParser(description=description, epilog="Not ported: " + LEFT_OUT)
+    ap = argparse.ArgumentParser(description=description)
     ap.add_argument("--config", default=None)
     ap.add_argument("--model", default=None, help="SMIL model .pkl")
     ap.add_argument("--data-path", default=None)
@@ -176,8 +176,29 @@ def base_parser(description: str, output_dir: str) -> argparse.ArgumentParser:
     ap.add_argument("--allow-random-backbone", action="store_true",
                     help="permit freeze_backbone=true without model.pretrained_npz")
     ap.add_argument("--set", nargs="*", default=None, help="dotted config overrides a.b=c")
+    ap.add_argument("--multihost", action="store_true",
+                    help="start the process group (torchrun's or SLURM's environment starts "
+                         "it anyway) and train data-parallel over its ranks")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return ap
+
+
+def setup_data_parallel(args, cfg):
+    """(device, ``('data',)`` mesh or None, global batch size): the process
+    group when asked for, this rank's device, and the config's batch
+    rounded to a multiple of ranks × accumulation steps."""
+    from smilify_tpu_torch.cli.optimize_to_joints import setup_device
+    from smilify_tpu_torch.train.trainer import data_mesh
+
+    dev = setup_device(args)
+    mesh = data_mesh(dev)
+    bs = cfg.training.batch_size
+    if mesh is not None:
+        step = mesh.size() * cfg.training.gradient_accumulation_steps
+        if bs % step:
+            bs = max(step, (bs // step) * step)
+            print(f"batch_size rounded to {bs} for {mesh.size()} ranks")
+    return dev, mesh, bs
 
 
 def load_run_config(args, mode: str):
@@ -230,14 +251,14 @@ def set_float32_matmul(dev: torch.device) -> None:
 
 def main(argv=None):
     args = base_parser("Train the single-view SMIL regressor", "runs/singleview").parse_args(argv)
-    dev = resolve_device(args.device)
+    cfg = load_run_config(args, "single_view")
+    dev, mesh, batch_size = setup_data_parallel(args, cfg)
     set_float32_matmul(dev)
 
     from smilify_tpu_torch.models.regressor import compute_batch_loss
     from smilify_tpu_torch.train.config import resolve_ignored_joint_indices, resolve_model_spec
     from smilify_tpu_torch.train.trainer import TrainState, train_epochs, try_resume
 
-    cfg = load_run_config(args, "single_view")
     spec = resolve_model_spec(cfg, device=dev)
     rcfg = cfg.regressor_config(spec)
     dataset, kind = build_dataset(cfg, spec)
@@ -275,8 +296,7 @@ def main(argv=None):
         TrainState(model.state_dict()), model,
         reset_ief_token_embedding=cfg.training.reset_ief_token_embedding)
     return train_epochs(model, cfg, apply_fn, make_loss, train_ds, val_ds,
-                        cfg.training.batch_size, dev, args.output_dir, state, start_epoch,
-                        visualize)
+                        batch_size, dev, args.output_dir, state, start_epoch, visualize, mesh)
 
 
 if __name__ == "__main__":

@@ -85,7 +85,8 @@ def matrix_to_quaternion(R: torch.Tensor) -> torch.Tensor:
     cands = torch.stack([q0, q1, q2, q3], dim=-2)              # (..., 4, 4)
     scores = torch.stack([tr, m00 - m11 - m22, m11 - m00 - m22, m22 - m00 - m11], dim=-1)
     best = torch.argmax(scores, dim=-1)
-    q = torch.take_along_dim(cands, best[..., None, None].expand(*best.shape, 1, 4), dim=-2)[..., 0, :]
+    # gather, not take_along_dim: the same values, and its shapes stay symbolic under torch.export
+    q = torch.gather(cands, -2, best[..., None, None].expand(best.shape + (1, 4)))[..., 0, :]
     q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
     return torch.where(q[..., :1] < 0, -q, q)
 

@@ -359,11 +359,13 @@ class SmalFitter:
         self.n_frames = int(data.joints.shape[0])
         self.params = init_params(self.spec, self.n_frames, self.shape_prior)
 
-    def _total_loss(self, params: FitParams, weights: StageWeights, visibility):
-        """Full loss + component dict for one step (overridden by the
-        multi-sequence :class:`~smilify_tpu_torch.fitter.fitter_batch.BatchedFitter`)."""
+    def _total_loss(self, params: FitParams, weights: StageWeights, visibility, data=None):
+        """Full loss + component dict for one step over ``data`` (default:
+        the fitter's own targets; overridden by the multi-sequence
+        :class:`~smilify_tpu_torch.fitter.fitter_batch.BatchedFitter` and the
+        sharded fitters)."""
         total, objs = forward_losses(
-            self.spec, params, self.data, weights,
+            self.spec, params, self.data if data is None else data, weights,
             self.pose_prior, self.limit_prior, self.shape_prior,
             self.image_size,
             visibility_override=visibility,
@@ -423,13 +425,15 @@ class SmalFitter:
 
         def step():
             opt.zero_grad(set_to_none=True)
-            total, objs = self._total_loss(params, weights, visibility)
+            total, objs = self._total_loss(params, weights, visibility, self.data)
             total.backward()
             with torch.no_grad():
-                for k, leaf in leaves.items():
+                for leaf in leaves.values():
                     if leaf.grad is None:
                         leaf.grad = torch.zeros_like(leaf)
-                    elif mask[k] != 1.0:
+                self._reduce_grads(leaves)
+                for k, leaf in leaves.items():
+                    if mask[k] != 1.0:
                         leaf.grad.mul_(mask[k])
             opt.step()
             return total.detach(), {k: v.detach() for k, v in objs.items()}
@@ -443,18 +447,32 @@ class SmalFitter:
             # callbacks see the end-of-chunk parameters, as the JAX fitter's do
             self.params = FitParams(**{k: v.detach() for k, v in leaves.items()})
             if callback is not None:
-                if n == 1:
-                    callback(stage_id, it, *results[0])
-                else:
-                    # ONE device→host readback per chunk
-                    names = list(results[0][1])
-                    table = torch.stack([
-                        torch.stack([r[0]] + [r[1][k] for k in names]) for r in results
-                    ]).cpu().numpy()
-                    for j, row in enumerate(table):
-                        callback(stage_id, it + j, row[0], dict(zip(names, row[1:])))
+                for j, (loss_j, objs_j) in enumerate(self._readback(results)):
+                    callback(stage_id, it + j, loss_j, objs_j)
             it += n
         self.params = FitParams(**{k: v.detach() for k, v in leaves.items()})
+        return self._stage_loss(loss)
+
+    # --- hooks of the sharded fitters (fitter_frames.ShardedFitterMixin) ---
+
+    def _reduce_grads(self, leaves: dict) -> None:
+        """Combine the gradients of ``leaves`` across devices before the
+        update: nothing to do on one device."""
+
+    def _readback(self, results):
+        """``[(loss, objs), ...]`` of a chunk's steps as the callback sees
+        them: one step's device tensors as they are, several steps' read
+        back to the host at once (ONE device→host read-back a chunk)."""
+        if len(results) == 1:
+            return results
+        names = list(results[0][1])
+        table = torch.stack([
+            torch.stack([r[0]] + [r[1][k] for k in names]) for r in results
+        ]).cpu().numpy()
+        return [(row[0], dict(zip(names, row[1:]))) for row in table]
+
+    def _stage_loss(self, loss):
+        """The loss :meth:`run_stage` returns: the last step's."""
         return loss
 
     def fit(self, schedule=None, callback=None, chunk: int = 1):
@@ -464,8 +482,13 @@ class SmalFitter:
 
     # --- inference/rendering helpers ---
 
-    @torch.no_grad()
     def forward_frames(self):
         """SMIL forward for all frames with the current parameters."""
-        verts, joints, _, _ = _posed(self.spec, self.params, self.allow_limb_scaling)
-        return verts, joints
+        return posed_frames(self.spec, self.params, self.allow_limb_scaling)
+
+
+@torch.no_grad()
+def posed_frames(spec, params: FitParams, allow_limb_scaling: bool = True):
+    """SMIL forward of every frame of ``params``: world (verts, joints)."""
+    verts, joints, _, _ = _posed(spec, params, allow_limb_scaling)
+    return verts, joints

@@ -23,8 +23,8 @@ frozen fields left out — the JAX package's ``optax.multi_transform`` of
 ``adam`` and ``set_to_zero``. The sampling draws come from one
 ``torch.Generator`` per manager, seeded from ``seed``, in step order, so the
 trajectory does not depend on ``chunk``. Target meshes are padded to a common
-vertex/face count with masks. Not ported yet: ``ShardedStageManager`` (the
-scan axis over several devices).
+vertex/face count with masks. :class:`ShardedStageManager` cuts the scans over
+the ranks of a ``('scans',)`` mesh.
 """
 
 from __future__ import annotations
@@ -323,8 +323,7 @@ class StageManager:
 
             def step():
                 opt.zero_grad(set_to_none=True)
-                total, objs = registration_losses(self.spec, self.topo, params, self.targets,
-                                                  self.generator, lw, stage.num_samples)
+                total, objs = self._losses(params, lw, stage.num_samples)
                 total.backward()
                 with torch.no_grad():
                     for leaf in leaves.values():
@@ -340,8 +339,8 @@ class StageManager:
                 results = [step() for _ in range(n)]
                 names = list(results[0][1])
                 # ONE device→host read-back per chunk
-                table = torch.stack([torch.stack([r[0]] + [r[1][k] for k in names])
-                                     for r in results]).cpu().numpy()
+                table = self._reduce_report(torch.stack([
+                    torch.stack([r[0]] + [r[1][k] for k in names]) for r in results])).cpu().numpy()
                 for j, row in enumerate(table):
                     objs_j = {k: float(v) for k, v in zip(names, row[1:])}
                     stage.loss_history.append(objs_j)
@@ -351,6 +350,15 @@ class StageManager:
             self.params = Fit3DParams(**{k: getattr(params, k).detach()
                                          for k in Fit3DParams.fields()})
         return self.params
+
+    def _losses(self, params: Fit3DParams, lw: Dict[str, float], num_samples: int):
+        """One step's (total, weighted terms) over the manager's meshes."""
+        return registration_losses(self.spec, self.topo, params, self.targets,
+                                   self.generator, lw, num_samples)
+
+    def _reduce_report(self, table: torch.Tensor) -> torch.Tensor:
+        """A chunk's reported (loss, terms) rows: as they are on one device."""
+        return table
 
     def plot_losses(self, out_dir: str, name: str = "losses"):
         """Semilog total-loss curve across all stages on one axis
@@ -409,8 +417,11 @@ class StageManager:
     def save_npz(self, out_dir: str, stage_name: str = "final"):
         """Export all params + verts + faces + labels (reference save_npz,
         trainer.py:494-508)."""
+        return self._write_npz(out_dir, stage_name, self.params, self.targets.names)
+
+    def _write_npz(self, out_dir: str, stage_name: str, params: Fit3DParams, names) -> str:
         os.makedirs(out_dir, exist_ok=True)
-        verts, joints = fitter3d_forward(self.spec, self.params, self.propagate_scaling)
+        verts, joints = fitter3d_forward(self.spec, params, self.propagate_scaling)
         path = os.path.join(out_dir, f"{stage_name}.npz")
 
         def host(x):
@@ -418,10 +429,96 @@ class StageManager:
 
         np.savez(
             path,
-            **{k: host(getattr(self.params, k)) for k in Fit3DParams.fields()},
+            **{k: host(getattr(params, k)) for k in Fit3DParams.fields()},
             verts=host(verts),
             joints=host(joints),
             faces=host(self.spec.faces).astype(np.int32),
-            labels=np.asarray(self.targets.names),
+            labels=np.asarray(names),
         )
         return path
+
+
+class ShardedStageManager(StageManager):
+    """:class:`StageManager` with the scans cut over the ranks of a 1-D
+    ``('scans',)`` mesh: a scan library registered across several cards.
+
+    Every :class:`Fit3DParams` field is per scan (scans share nothing), so
+    the step needs NO collective in the optimization: each rank registers
+    its B/D scans, and only the reported scalars are summed. Each term is a
+    mean over the scan batch, so each rank scales its terms by 1/D: their
+    sum over the ranks, and every local gradient, equal the unsharded ones.
+    The samples: every rank draws the WHOLE batch's uniforms from the same
+    seeded generator, in the unsharded manager's order, and keeps its rows,
+    so each rank samples exactly what the unsharded run samples for its
+    scans. Every rank is given the whole batch (targets and, if any, initial
+    parameters) and keeps its block; ``mesh`` defaults to every rank."""
+
+    def __init__(self, spec: ModelSpec, targets: TargetMeshes,
+                 params: Optional[Fit3DParams] = None, seed: int = 0,
+                 propagate_scaling: bool = True, mesh=None):
+        from smilify_tpu_torch.train.multihost import axis_group, globalize, make_mesh, process_count
+
+        if mesh is None and process_count() > 1:
+            mesh = make_mesh((process_count(),), ("scans",), spec.device)
+        if mesh is not None and len(mesh.mesh_dim_names) != 1:
+            raise ValueError(f"need a 1-D mesh, got axes {mesh.mesh_dim_names}")
+        self.mesh = mesh
+        self._axis = mesh.mesh_dim_names[0] if mesh is not None else "scans"
+        self._group = axis_group(mesh, self._axis)
+        self.n_scans = B = int(targets.verts.shape[0])
+        D, r = self._group[1], self._group[2]
+        if B % D:
+            raise ValueError(f"{B} scans not divisible by {D} ranks — pad the batch "
+                             f"(duplicate scans; drop the duplicates from the exported npz)")
+        self._rows = slice(r * (B // D), (r + 1) * (B // D))
+        self.all_names = tuple(targets.names)
+        SCAN = (self._axis,)
+        local = globalize(targets._replace(names=None), mesh,
+                          TargetMeshes(SCAN, SCAN, SCAN, SCAN, None))
+        if params is not None:
+            params = globalize(params, mesh, Fit3DParams(*[SCAN] * len(Fit3DParams.fields())))
+        super().__init__(spec, local._replace(names=self.all_names[self._rows]), params=params,
+                         seed=seed, propagate_scaling=propagate_scaling)
+
+    def _losses(self, params: Fit3DParams, lw: Dict[str, float], num_samples: int):
+        uniforms = None
+        if lw.get("chamfer", 0.0) > 0 or lw.get("sdf", 0.0) > 0:
+            # the unsharded batch's draws, this rank's rows of them
+            every = registration_uniforms(self.n_scans, num_samples, self.generator,
+                                          self.spec.device)
+            uniforms = tuple(u[self._rows] for u in every)
+        _, objs = registration_losses(self.spec, self.topo, params, self.targets, None, lw,
+                                      num_samples, uniforms=uniforms)
+        D = self._group[1]
+        objs = {k: v / D for k, v in objs.items()}
+        return sum(objs.values()), objs
+
+    def _reduce_report(self, table: torch.Tensor) -> torch.Tensor:
+        from smilify_tpu_torch.train.multihost import all_reduce_sum
+
+        group, size, _ = self._group
+        return all_reduce_sum(table, group) if size > 1 else table
+
+    def gathered_params(self) -> Fit3DParams:
+        """Every scan's parameters on every rank (a collective)."""
+        from smilify_tpu_torch.train.multihost import allgather
+
+        SCAN = (self._axis,)
+        full = allgather(self.params, self.mesh, Fit3DParams(*[SCAN] * len(Fit3DParams.fields())))
+        return Fit3DParams(**{k: torch.from_numpy(getattr(full, k)).to(self.spec.device)
+                              for k in Fit3DParams.fields()})
+
+    def save_npz(self, out_dir: str, stage_name: str = "final", keep: Optional[int] = None):
+        """:meth:`StageManager.save_npz` of the first ``keep`` scans (default
+        all; the rest is padding), written by process 0. A collective: every
+        rank calls it; the others return None."""
+        from smilify_tpu_torch.train.multihost import is_primary
+
+        keep = self.n_scans if keep is None else keep
+        params = self.gathered_params()
+        if not is_primary():
+            return None
+        with torch.no_grad():
+            return self._write_npz(out_dir, stage_name, Fit3DParams(
+                **{k: getattr(params, k)[:keep] for k in Fit3DParams.fields()}),
+                self.all_names[:keep])

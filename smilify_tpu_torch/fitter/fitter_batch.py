@@ -19,9 +19,11 @@ sequence axis on ``FitData`` (sil (S, N, H, W), joints (S, N, K, 2),
 visibility (S, N, K)); the stage loop, freeze masks and ``chunk`` are
 inherited unchanged.
 
-Not ported yet: the sharded corpus fitters (``ShardedBatchedFitter``,
-``GridShardedFitter``) and their frame-sharded base in ``fitter_frames``,
-which need ``torch.distributed``.
+The corpus over several ranks: :class:`ShardedBatchedFitter` cuts the
+clips over a ``('clips',)`` mesh (nothing is shared, so only the reported
+scalars are reduced); :class:`GridShardedFitter` cuts clips and frames over
+a ``('clips', 'frames')`` mesh, with the frame axis handled as in
+:mod:`~smilify_tpu_torch.fitter.fitter_frames`.
 """
 
 from __future__ import annotations
@@ -42,10 +44,17 @@ from smilify_tpu_torch.fitter.fitter import (
     loss_objs,
     temporal_losses,
 )
+from smilify_tpu_torch.fitter.fitter_frames import (
+    _FRAME_MEAN_TERMS,
+    ShardedFitterMixin,
+    _default_mesh,
+    temporal_losses_halo,
+)
 from smilify_tpu_torch.fitter.priors import LimitPrior, PosePrior, ShapePrior
 from smilify_tpu_torch.fitter.stages import StageWeights
 from smilify_tpu_torch.render.cameras import FoVCamera, default_camera
 from smilify_tpu_torch.render.rasterizer import soft_silhouette
+from smilify_tpu_torch.train.multihost import axis_group, globalize, process_count
 
 
 def init_params_many(spec: ModelSpec, n_seqs: int, n_frames: int,
@@ -88,6 +97,15 @@ def _batched_smil_forward(spec: ModelSpec, params: FitParams, allow_limb_scaling
     trans_f = flat(params.trans)
     return (out.verts + trans_f[:, None, :], out.joints + trans_f[:, None, :],
             theta, betas_bc)
+
+
+@torch.no_grad()
+def posed_clips(spec: ModelSpec, params: FitParams, allow_limb_scaling: bool = True):
+    """SMIL forward of every clip and frame of batched ``params``: world
+    verts (S, N, V, 3) and joints (S, N, J, 3)."""
+    S, N = params.global_rot.shape[:2]
+    verts, joints, _, _ = _batched_smil_forward(spec, params, allow_limb_scaling)
+    return verts.reshape(S, N, verts.shape[1], 3), joints.reshape(S, N, joints.shape[1], 3)
 
 
 def forward_losses_many(
@@ -153,9 +171,9 @@ class BatchedFitter(SmalFitter):
         self.n_seqs, self.n_frames = int(data.joints.shape[0]), int(data.joints.shape[1])
         self.params = init_params_many(self.spec, self.n_seqs, self.n_frames, self.shape_prior)
 
-    def _total_loss(self, params, weights: StageWeights, visibility):
+    def _total_loss(self, params, weights: StageWeights, visibility, data=None):
         total, objs = forward_losses_many(
-            self.spec, params, self.data, weights,
+            self.spec, params, self.data if data is None else data, weights,
             self.pose_prior, self.limit_prior, self.shape_prior,
             self.image_size,
             visibility_override=visibility,
@@ -172,15 +190,92 @@ class BatchedFitter(SmalFitter):
         objs = dict(objs, temporal_joint=tj, temporal_global=tg, temporal_trans=tt)
         return total + tj + tg + tt, objs
 
-    @torch.no_grad()
     def forward_frames(self):
         """SMIL forward for every sequence and frame: (S, N, V, 3), (S, N, J, 3)."""
-        S, N, J = self.n_seqs, self.n_frames, self.spec.n_joints
-        verts, joints, _, _ = _batched_smil_forward(self.spec, self.params,
-                                                    self.allow_limb_scaling)
-        return verts.reshape(S, N, verts.shape[1], 3), joints.reshape(S, N, J, 3)
+        return posed_clips(self.spec, self.params, self.allow_limb_scaling)
 
     def sequence_params(self, s: int) -> FitParams:
         """The s-th sequence's parameters as single-sequence parameters (for
         per-clip export and rendering through the single-sequence tooling)."""
         return sequence_params(self.params, s)
+
+
+class GridShardedFitter(ShardedFitterMixin, BatchedFitter):
+    """:class:`BatchedFitter` over a 2-D ``('clips', 'frames')`` mesh: a
+    corpus of long clips cut along both axes, each rank holding an
+    (S/Dc × N/Df) block of (clip, frame) space.
+
+    Clips share nothing, so the ``clips`` axis needs no collective in the
+    update. Along ``frames`` each clip's shared leaves (betas, scales, joint
+    offsets) sum their gradients, the clip's frame-mean terms scale by 1/Df
+    and the temporal pairs across a rank boundary take the halo, one
+    exchange for every local clip. The reported scalars sum over both axes.
+    Every rank is given the whole corpus and keeps its block; ``mesh``
+    defaults to (every rank × 1)."""
+
+    _MESH_AXES = ("clips", "frames")
+
+    def __init__(self, spec, data: FitData, image_size, mesh=None, device="cuda", **kwargs):
+        if mesh is None:
+            mesh = _default_mesh((process_count(), 1)[:len(self._MESH_AXES)], self._MESH_AXES,
+                                 device)
+        if mesh is not None and tuple(mesh.mesh_dim_names) != self._MESH_AXES:
+            raise ValueError(f"need a {self._MESH_AXES} mesh, got {mesh.mesh_dim_names}")
+        self.mesh = mesh
+        self._report_axes = self._MESH_AXES
+        self._frames = (axis_group(mesh, "frames") if "frames" in self._MESH_AXES
+                        else (None, 1, 0))
+        S, N = int(data.joints.shape[0]), int(data.joints.shape[1])
+        Dc, Df = axis_group(mesh, "clips")[1], self._frames[1]
+        if S % Dc or N % Df:
+            raise ValueError(
+                f"corpus ({S} clips × {N} frames) not divisible by the ({Dc} × {Df}) mesh — "
+                f"pad the corpus (cli/optimize_corpus.py --shard does this)")
+        TILE = self._data_spec()
+        local = globalize(data._replace(rgb=None), mesh,
+                          FitData(rgb=None, sil=TILE, joints=TILE, visibility=TILE))
+        super().__init__(spec, local._replace(rgb=data.rgb), image_size, device=device, **kwargs)
+        self.n_local = (self.n_seqs, self.n_frames)
+        self.n_seqs, self.n_frames = S, N
+
+    def _data_spec(self):
+        return ("clips", "frames")
+
+    def _param_specs(self) -> FitParams:
+        TILE, CLIP = self._data_spec(), ("clips",)
+        return FitParams(global_rot=TILE, joint_rot=TILE, betas=CLIP, trans=TILE, fov=TILE,
+                         log_beta_scales=CLIP, joint_trans=CLIP)
+
+    def _total_loss(self, params, weights: StageWeights, visibility, data=None):
+        """This rank's loss: its sum over both axes, and its gradients once
+        the shared ones are summed along ``frames``, equal the unsharded
+        batched fit's."""
+        Df = self._frames[1]
+        _, objs = forward_losses_many(
+            self.spec, params, self.data if data is None else data, weights,
+            self.pose_prior, self.limit_prior, self.shape_prior,
+            self.image_size,
+            visibility_override=visibility,
+            canonical_joints=self.canonical_joints,
+            allow_limb_scaling=self.allow_limb_scaling,
+            use_reference=self.use_reference,
+            approx_max_faces=self.approx_max_faces,
+            camera=self.camera,
+        )
+        objs = {k: (v / Df if k in _FRAME_MEAN_TERMS else v) for k, v in objs.items()}
+        tj, tg, tt = temporal_losses_halo(params, weights.w_temp, *self._frames)
+        objs = dict(objs, temporal_joint=tj, temporal_global=tg, temporal_trans=tt)
+        return functools.reduce(lambda a, b: a + b, objs.values()), objs
+
+
+class ShardedBatchedFitter(GridShardedFitter):
+    """:class:`BatchedFitter` with the clips cut over a 1-D ``('clips',)``
+    mesh: the corpus-scale path. Clips are independent, so the step has NO
+    collective in the optimization: each rank fits its S/D clips (its raster
+    runs the kernels on its own S/D·N frames) and only the reported scalars
+    are summed over the ranks."""
+
+    _MESH_AXES = ("clips",)
+
+    def _data_spec(self):
+        return ("clips",)

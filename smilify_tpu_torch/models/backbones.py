@@ -37,6 +37,7 @@ import math
 from typing import Dict, NamedTuple, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -102,11 +103,28 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     Torch's update is kept (one fused pass over the activations) and its
     variance term scaled back by (n − 1)/n on the C running variances. It
     runs on copies of the statistics: autograd keeps the tensors it was
-    given, and the correction may not change them in place."""
+    given, and the correction may not change them in place.
+
+    With ``process_group`` set to a group of more than one rank (the
+    data-parallel trainer sets it: :func:`sync_batchnorm`), train mode
+    normalizes with the statistics of the GLOBAL batch, as XLA computes
+    them over a sharded batch, and the running statistics move with the
+    biased variance as above. The statistics: each rank's per-channel sum,
+    sum of squares and count summed over the group (one all-reduce), and
+    Flax's E[x²] − E[x]². On the CPU :meth:`_global_batch_forward` computes
+    the rest with elementwise ops under autograd (the all-reduce's backward
+    sums the gradients the same way); on the card :class:`_GlobalBatchNorm`
+    runs the fused passes ``SyncBatchNorm`` uses, which the CPU lacks."""
+
+    process_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if self.process_group is not None and dist.get_world_size(self.process_group) > 1:
+            if x.is_cuda:
+                return self._global_batch_forward_fused(x)
+            return self._global_batch_forward(x)
         n = x.numel() // x.shape[1]
         m = self.momentum
         mean, var = self.running_mean.clone(), self.running_var.clone()
@@ -118,6 +136,105 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
             self.running_mean.copy_(mean)
             self.num_batches_tracked.add_(1)
         return y
+
+    def _global_batch_forward(self, x: torch.Tensor) -> torch.Tensor:
+        from smilify_tpu_torch.train.multihost import AllReduceSum
+
+        C = x.shape[1]
+        xf = x.float()
+        dims = [d for d in range(x.dim()) if d != 1]
+        # the sums accumulate in float64: E[x²] − E[x]² cancels, and a
+        # float32 sum over a global batch of activations rounds visibly
+        f64 = torch.float64
+        count = torch.full((1,), x.numel() // C, dtype=f64, device=x.device)
+        stats = AllReduceSum.apply(
+            torch.cat([xf.sum(dims, dtype=f64), (xf * xf).sum(dims, dtype=f64), count]),
+            self.process_group)
+        n = stats[2 * C]
+        mean64 = stats[:C] / n
+        mean, var = mean64.float(), (stats[C:2 * C] / n - mean64 * mean64).float()
+        shape = [1, C] + [1] * (x.dim() - 2)
+        y = (xf - mean.view(shape)) * torch.rsqrt(var + self.eps).view(shape)
+        y = y * self.weight.view(shape) + self.bias.view(shape)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var.detach(), alpha=m)
+            self.num_batches_tracked.add_(1)
+        return y.to(x.dtype)
+
+    def _global_batch_forward_fused(self, x: torch.Tensor) -> torch.Tensor:
+        y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps,
+                                              self.process_group)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode batch normalization over the group's global batch, on the
+    card. The statistics are :meth:`FlaxBatchNorm2d._global_batch_forward`'s:
+    each rank's per-channel sum and sum of squares (two reductions of one
+    float64 copy of the activations, so E[x²] − E[x]² does not cancel) and
+    its count, one all-reduce. The normalization and its backward are the
+    fused passes ``SyncBatchNorm`` uses (``batch_norm_elemt``;
+    ``batch_norm_backward_reduce`` and ``batch_norm_backward_elemt``, whose
+    two per-channel sums are summed over the group, one all-reduce), not a
+    chain of elementwise ops under autograd. Returns the output and the
+    global mean and biased variance (float32), which move the running
+    statistics."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group):
+        if not x.is_contiguous(memory_format=torch.channels_last):
+            x = x.contiguous()
+        C, f64 = x.shape[1], torch.float64
+        dims = [d for d in range(x.dim()) if d != 1]
+        xd = x.to(f64)          # once: a reduction asked for float64 would copy x itself
+        stats = torch.cat([xd.sum(dims), torch.linalg.vector_norm(xd, 2, dims).square(),
+                           x.new_full((1,), x.numel() // C, dtype=f64)])
+        del xd
+        dist.all_reduce(stats, op=dist.ReduceOp.SUM, group=group)
+        n = stats[2 * C]
+        mean64 = stats[:C] / n
+        var64 = stats[C:2 * C] / n - mean64 * mean64
+        mean, var = mean64.float(), var64.float()
+        invstd = torch.rsqrt(var64 + eps).float()
+        ctx.save_for_backward(x, weight, mean, invstd, n.to(torch.int32).reshape(1))
+        ctx.group = group
+        ctx.mark_non_differentiable(mean, var)
+        return torch.batch_norm_elemt(x, weight, bias, mean, invstd, eps), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _mean, _var):
+        if not dy.is_contiguous(memory_format=torch.channels_last):
+            dy = dy.contiguous()
+        x, weight, mean, invstd, count = ctx.saved_tensors
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        sum_dy, sum_dy_xmu, dw, db = torch.batch_norm_backward_reduce(
+            dy, x, mean, invstd, weight, need_x, need_w, need_b)
+        dx = None
+        if need_x:
+            C = sum_dy.shape[0]
+            sums = torch.cat([sum_dy, sum_dy_xmu])
+            dist.all_reduce(sums, op=dist.ReduceOp.SUM, group=ctx.group)
+            dx = torch.batch_norm_backward_elemt(dy, x, mean, invstd, weight, sums[:C], sums[C:],
+                                                 count)
+        return dx, dw if need_w else None, db if need_b else None, None, None
+
+
+def sync_batchnorm(model: nn.Module, group) -> int:
+    """Point every :class:`FlaxBatchNorm2d` of ``model`` at ``group`` (None:
+    back to the rank's own batch). Returns how many it set."""
+    n = 0
+    for m in model.modules():
+        if isinstance(m, FlaxBatchNorm2d):
+            m.process_group = group
+            n += 1
+    return n
 
 
 def _bn(c: int) -> nn.BatchNorm2d:

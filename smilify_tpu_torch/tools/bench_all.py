@@ -388,10 +388,12 @@ TRAIN_WEIGHTS = {"global_rot": 1.0, "joint_rot": 1.0, "betas": 0.5, "trans": 1.0
                  "keypoint_2d": 1.0}
 
 
-def singleview_train_setup(spec, backbone="resnet50", res=224, compute_dtype=torch.bfloat16):
+def singleview_train_setup(spec, backbone="resnet50", res=224, compute_dtype=torch.bfloat16,
+                           mesh=None):
     """configs 4b/4c: (model in train mode, its train step, a batch maker
     ``batch(B, rng)``): Adam 1e-4, param MSEs + visibility-weighted 2D
-    keypoints."""
+    keypoints. With a ``('data',)`` ``mesh`` the step is the data-parallel
+    one (``train/trainer.py::make_train_step``): give it this rank's rows."""
     from smilify_tpu_torch.cli.train_regressor import make_singleview_apply_fn
     from smilify_tpu_torch.models.regressor import RegressorConfig, SMILRegressor, compute_batch_loss
     from smilify_tpu_torch.train.trainer import PlainAdam, make_train_step
@@ -409,7 +411,7 @@ def singleview_train_setup(spec, backbone="resnet50", res=224, compute_dtype=tor
         return compute_batch_loss(spec, cfg, preds, targets, TRAIN_WEIGHTS, image_size=(res, res))
 
     step = make_train_step(model, make_singleview_apply_fn(cfg, spec), loss_fn,
-                           PlainAdam(model, TRAIN_LR))
+                           PlainAdam(model, TRAIN_LR), mesh=mesh)
     dev, J = spec.device, spec.n_joints
 
     def batch(B, rng):

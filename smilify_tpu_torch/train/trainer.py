@@ -19,16 +19,28 @@
 
 A step reads nothing back to the host: the non-finite test, the clip and
 the skip are device tensors, the skip through the fused Adam kernel's
-``found_inf`` flag. The data-parallel form comes with the multi-device
-trainers.
+``found_inf`` flag.
+
+Data-parallel training over a ``('data',)`` mesh (:func:`data_mesh`, one
+rank a process): the model runs inside ``DistributedDataParallel`` over the
+mesh's group, its BatchNorms normalize with the global batch's statistics
+(``models/backbones.py::sync_batchnorm``, as XLA computes them over a
+sharded batch), each rank takes its rows of every global batch
+(:func:`shard_batch`; the device cache takes them itself), ``accum_steps``
+micro-batches run under ``no_sync`` but the last, and the reported and
+validation losses are averaged over the ranks. The epoch loop decides
+collectively whether a batch is skipped and when the epoch ends, so no rank
+enters a collective that another left (:func:`train_epochs`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
 import time
+import warnings
 from collections import deque
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
@@ -53,9 +65,10 @@ class DeviceDataCache:
     batch-size index array from the host. 64-bit columns are stored in 32
     bits, as the JAX package's cache stores them.
 
-    One device only: the data-parallel form (a batch split over cards) comes
-    with the multi-device trainers. On-the-fly augmentation needs the host
-    pipeline.
+    Under data parallelism each rank holds the whole cache and takes its
+    rows of every global batch (``rows``, from :func:`rank_rows`), so the
+    global batches are the single-device run's. On-the-fly augmentation
+    needs the host pipeline.
     """
 
     def __init__(self, dataset, device="cuda", image_keys=("image", "images")):
@@ -92,14 +105,101 @@ class DeviceDataCache:
         return b
 
     def iterate(self, batch_size: int, rng: np.random.Generator,
-                shuffle: bool = True, fraction: float = 1.0):
+                shuffle: bool = True, fraction: float = 1.0, rows=None):
         """Full batches over the cache (drop_last): the index sequence of the
-        JAX cache for the same ``rng``."""
+        JAX cache for the same ``rng``; ``rows`` picks this rank's positions
+        in each batch."""
         idx = rng.permutation(self.n) if shuffle else np.arange(self.n)
         if fraction < 1.0:
             idx = idx[: max(1, int(self.n * fraction))]
         for i in range(0, len(idx) - batch_size + 1, batch_size):
-            yield self.batch(idx[i: i + batch_size])
+            b = idx[i: i + batch_size]
+            yield self.batch(b if rows is None else b[rows])
+
+
+# ---------------------------------------------------------------------------
+# the data-parallel mesh
+# ---------------------------------------------------------------------------
+
+
+def data_mesh(device="cuda"):
+    """A 1-axis ``('data',)`` mesh over every rank of the process group,
+    or None in a single process (one device: no data parallelism)."""
+    from smilify_tpu_torch.train.multihost import make_mesh, process_count
+
+    n = process_count()
+    return make_mesh((n,), ("data",), device) if n > 1 else None
+
+
+def rank_rows(batch_size: int, mesh, accum_steps: int = 1) -> np.ndarray:
+    """This rank's positions in a global batch of ``batch_size``: its
+    share of each of the ``accum_steps`` micro-batches, so the global
+    micro-batches are the single-device step's (micro-batch i holds rows
+    [i·m, (i+1)·m) of the batch, m = batch_size / accum_steps)."""
+    from smilify_tpu_torch.train.multihost import axis_group
+
+    _, n, r = axis_group(mesh, "data")
+    if batch_size % (n * accum_steps):
+        raise ValueError(f"batch {batch_size} not divisible by {n} ranks × "
+                         f"{accum_steps} micro-batches")
+    m = batch_size // accum_steps
+    k = m // n
+    return (np.arange(accum_steps)[:, None] * m + r * k + np.arange(k)[None]).reshape(-1)
+
+
+def shard_batch(mesh, batch: Dict[str, Any], accum_steps: int = 1) -> Dict[str, Any]:
+    """This rank's rows (:func:`rank_rows`) of a global batch given whole on
+    every rank; the batch itself without a mesh."""
+    if mesh is None:
+        return batch
+    n = len(next(iter(batch.values())))
+    rows = rank_rows(n, mesh, accum_steps)
+    out = {}
+    for k, v in batch.items():
+        if isinstance(v, torch.Tensor):
+            out[k] = v[torch.as_tensor(rows, device=v.device)]
+        else:
+            out[k] = np.asarray(v)[rows]
+    return out
+
+
+def data_parallel(model: torch.nn.Module, mesh):
+    """``(net, group)``: ``model`` inside ``DistributedDataParallel`` over the
+    mesh's ``data`` group (a group of one rank included) with its
+    BatchNorms on the global batch, or the model itself (and None) without a
+    mesh. The wrapper is made once a model and kept on it: a second wrapper
+    would reduce every gradient twice."""
+    from smilify_tpu_torch.models.backbones import sync_batchnorm
+    from smilify_tpu_torch.train.multihost import axis_group
+
+    if mesh is None:
+        return model, None
+    group, _, _ = axis_group(mesh, "data")
+    ddp = model.__dict__.get("_data_parallel")
+    if ddp is None or ddp.process_group is not group:
+        sync_batchnorm(model, group)
+        # the running statistics are the same on every rank by construction
+        # (global-batch statistics): no buffer broadcast a step
+        with warnings.catch_warnings():
+            # newer releases rename broadcast_buffers; the card's still takes it
+            warnings.simplefilter("ignore", FutureWarning)
+            ddp = torch.nn.parallel.DistributedDataParallel(
+                model, process_group=group, broadcast_buffers=False)
+        model.__dict__["_data_parallel"] = ddp
+    return ddp, group
+
+
+def _mean_over(group, *tensors):
+    """The tensors averaged over ``group`` (one all-reduce of them stacked);
+    as they are without a group."""
+    if group is None:
+        return tensors
+    from smilify_tpu_torch.train.multihost import all_reduce_sum
+
+    flat = torch.stack([t.detach().float().reshape(()) for t in tensors])
+    all_reduce_sum(flat, group)
+    flat /= torch.distributed.get_world_size(group)
+    return tuple(flat.unbind(0))
 
 
 # ---------------------------------------------------------------------------
@@ -178,6 +278,9 @@ class Optimizer:
         one = torch.ones((), dtype=g_norm.dtype, device=g_norm.device)
         torch._foreach_div_(grads, torch.where(keep, one, g_norm))
         torch._foreach_mul_(grads, torch.where(keep, one, one * self.max_norm))
+        # under DistributedDataParallel the gradients read here are already
+        # the all-reduced ones, the same on every rank: every rank takes the
+        # same decision and the replicas stay equal
         self.notfinite_count = torch.where(finite, torch.zeros_like(self.notfinite_count),
                                            self.notfinite_count + 1)
         self.total_notfinite = self.total_notfinite + (~finite).to(torch.int32)
@@ -244,7 +347,7 @@ def _split_batch(batch, n: int) -> List:
 
 
 def make_train_step(model: torch.nn.Module, apply_fn: Callable, loss_fn: Callable,
-                    opt: Optimizer, accum_steps: int = 1):
+                    opt: Optimizer, accum_steps: int = 1, mesh=None):
     """``step(batch) -> (loss, components)``, both device tensors.
 
     ``apply_fn(model, batch, train) -> preds`` (the model in train mode
@@ -254,10 +357,18 @@ def make_train_step(model: torch.nn.Module, apply_fn: Callable, loss_fn: Callabl
     statistics advance once a micro-batch, and the loss and each component
     are the micro-batches' means. The statistics advance on a skipped
     (non-finite) step too, as the JAX step returns its new statistics
-    unconditionally."""
+    unconditionally.
+
+    With a ``('data',)`` ``mesh`` of several ranks (:func:`data_mesh`) the
+    batch is this rank's rows of the global batch (:func:`shard_batch`);
+    the model runs inside ``DistributedDataParallel``
+    (:func:`data_parallel`), the gradients are all-reduced once a step (the
+    micro-batches but the last run under ``no_sync``), and the loss and its
+    components are averaged over the ranks."""
+    net, group = data_parallel(model, mesh)
 
     def compute(mb):
-        total, objs = loss_fn(apply_fn(model, mb, True), mb)
+        total, objs = loss_fn(apply_fn(net, mb, True), mb)
         total.backward()
         return total.detach(), {k: v.detach() for k, v in objs.items()}
 
@@ -266,7 +377,12 @@ def make_train_step(model: torch.nn.Module, apply_fn: Callable, loss_fn: Callabl
         for p in opt.params:
             p.grad = None
         if accum_steps > 1:
-            outs = [compute(mb) for mb in _split_batch(batch, accum_steps)]
+            mbs = _split_batch(batch, accum_steps)
+            outs = []
+            for i, mb in enumerate(mbs):
+                quiet = group is not None and i < len(mbs) - 1
+                with net.no_sync() if quiet else contextlib.nullcontext():
+                    outs.append(compute(mb))
             torch._foreach_div_([p.grad for p in opt.params if p.grad is not None],
                                 float(accum_steps))
             loss = sum(loss for loss, _ in outs) / accum_steps
@@ -274,18 +390,32 @@ def make_train_step(model: torch.nn.Module, apply_fn: Callable, loss_fn: Callabl
         else:
             loss, objs = compute(batch)
         opt.step()
+        if group is not None:
+            names = list(objs)
+            loss, *vals = _mean_over(group, loss, *(objs[k] for k in names))
+            objs = dict(zip(names, vals))
         return loss, objs
 
     return step
 
 
-def make_eval_step(model: torch.nn.Module, apply_fn: Callable, loss_fn: Callable):
-    """``step(batch) -> (loss, components)`` of the model in eval mode."""
+def make_eval_step(model: torch.nn.Module, apply_fn: Callable, loss_fn: Callable, mesh=None):
+    """``step(batch) -> (loss, components)`` of the model in eval mode;
+    with a ``('data',)`` mesh of several ranks, averaged over them (each
+    rank evaluates its rows)."""
+    from smilify_tpu_torch.train.multihost import axis_group
+
+    group, n, _ = axis_group(mesh, "data")
 
     @torch.no_grad()
     def step(batch):
         model.eval()
-        return loss_fn(apply_fn(model, batch, False), batch)
+        loss, objs = loss_fn(apply_fn(model, batch, False), batch)
+        if n > 1:
+            names = list(objs)
+            loss, *vals = _mean_over(group, loss, *(objs[k] for k in names))
+            objs = dict(zip(names, vals))
+        return loss, objs
 
     return step
 
@@ -741,10 +871,15 @@ def try_resume(ckpt_dir: str, resume: Optional[str], state: TrainState,
     return state, start_epoch
 
 
+def _batch_signature(batch) -> Tuple:
+    return tuple(sorted((k, tuple(v.shape), str(v.dtype)) for k, v in batch.items()
+                        if isinstance(v, torch.Tensor)))
+
+
 def train_epochs(model: torch.nn.Module, cfg, apply_fn: Callable, make_loss: Callable,
                  train_ds, val_ds, batch_size: int, device: torch.device, out_dir: str,
                  state: TrainState, start_epoch: int = 0,
-                 visualize: Optional[Callable] = None) -> TrainState:
+                 visualize: Optional[Callable] = None, mesh=None) -> TrainState:
     """The JAX trainer CLIs' epoch loop, shared by both ports.
 
     Each epoch: the curriculum's loss weights and learning rate and the
@@ -756,7 +891,30 @@ def train_epochs(model: torch.nn.Module, cfg, apply_fn: Callable, make_loss: Cal
     counted, and the error raised once the skips outnumber max(4, the steps
     so far)); the validation loss; ``visualize(epoch) -> metrics`` on the
     visualization cadence; :func:`end_of_epoch_outputs`. ``make_loss(weights)``
-    builds ``loss_fn(preds, batch)``."""
+    builds ``loss_fn(preds, batch)``.
+
+    With a ``('data',)`` ``mesh`` of several ranks (:func:`data_mesh`),
+    ``batch_size`` is the global batch: the device cache gives each rank its
+    rows of every global batch, the host pipeline a strided shard of the
+    dataset (:func:`~smilify_tpu_torch.train.multihost.shard_dataset_for_process`)
+    and the local share of the batch. Before each step the ranks agree on
+    two flags over a host (gloo) group: whether every rank has a batch (the
+    epoch ends when one has none) and whether one failed to prepare its
+    batch (device copy, or keys and shapes unlike the first batch's): then
+    every rank skips it and the skip counts agree. A step that raises after
+    that is not skipped: the other ranks are inside its collectives.
+    Checkpoints, plots and visualizations are written by rank 0."""
+    from smilify_tpu_torch.train.multihost import (
+        axis_group,
+        host_group,
+        is_primary,
+        shard_dataset_for_process,
+    )
+
+    group, n_ranks, _ = axis_group(mesh, "data")
+    distributed = n_ranks > 1
+    flags_group = host_group(group) if distributed else None
+    accum = cfg.training.gradient_accumulation_steps
     bs = batch_size
     host_rng = np.random.default_rng(cfg.training.seed)
     staging = StagingCollator()
@@ -771,9 +929,22 @@ def train_epochs(model: torch.nn.Module, cfg, apply_fn: Callable, make_loss: Cal
                 val_cache = DeviceDataCache(val_ds, device)
             print(f"device data cache: {len(train_ds)} train samples, "
                   f"{device_cache.bytes / 1e6:.0f} MB resident on {device}")
+    rows = rank_rows(bs, mesh, accum) if distributed else None
+    host_bs, val_bs = bs, bs
+    if distributed and device_cache is None:
+        host_bs, train_ds = shard_dataset_for_process(train_ds, bs)
+        val_bs, val_ds = shard_dataset_for_process(val_ds, bs) if len(val_ds) >= bs else (bs, val_ds)
 
     def to_device(host_batch):
         return narrow_floats(staging.to_device(host_batch, device))
+
+    def agree(have: bool, failed: bool):
+        """(every rank has a batch, some rank failed to prepare its batch)."""
+        if not distributed:
+            return have, failed
+        flags = torch.tensor([int(have), int(failed)], dtype=torch.int32)
+        torch.distributed.all_reduce(flags, group=flags_group)
+        return int(flags[0]) == n_ranks, int(flags[1]) > 0
 
     current = {"key": None}
     t_start = time.time()
@@ -790,33 +961,52 @@ def train_epochs(model: torch.nn.Module, cfg, apply_fn: Callable, make_loss: Cal
             opt = build_optimizer(cfg, lr, frozen, model)
             loss_fn = make_loss(dict(weights))
             current.update(key=key, opt=opt,
-                           step_fn=make_train_step(model, apply_fn, loss_fn, opt,
-                                                   cfg.training.gradient_accumulation_steps),
-                           eval_fn=make_eval_step(model, apply_fn, loss_fn))
+                           step_fn=make_train_step(model, apply_fn, loss_fn, opt, accum, mesh),
+                           eval_fn=make_eval_step(model, apply_fn, loss_fn, mesh))
             print(f"epoch {epoch}: lr={lr} frozen_backbone={frozen}")
 
-        losses, objs, skipped = [], {}, 0
+        losses, objs, skipped, signature = [], {}, 0, None
         if device_cache is not None:
-            batch_iter = device_cache.iterate(bs, host_rng, fraction=cfg.dataset.dataset_fraction)
+            batch_iter = device_cache.iterate(bs, host_rng, fraction=cfg.dataset.dataset_fraction,
+                                              rows=rows)
         else:
-            batch_iter = iterate_batches(train_ds, bs, host_rng,
+            batch_iter = iterate_batches(train_ds, host_bs, host_rng,
                                          fraction=cfg.dataset.dataset_fraction, collate=staging,
                                          num_workers=cfg.training.num_workers,
                                          prefetch=cfg.training.prefetch_factor,
                                          worker_mode=cfg.training.worker_mode, skip_errors=True)
-        for batch in batch_iter:
+        batches = iter(batch_iter)
+        while True:
             # per-batch resilience, as the JAX trainers have it
-            try:
-                if device_cache is None:
-                    batch = to_device(batch)
-                loss, objs = current["step_fn"](batch)
-                losses.append(loss)          # a device scalar: no read-back a step
-                state.step += 1
-            except Exception as e:  # noqa: BLE001
-                skipped += 1
-                print(f"warning: skipped batch ({type(e).__name__}: {e})")
-                if skipped > max(4, len(losses)):
-                    raise
+            batch, error = next(batches, None), None
+            if batch is not None:
+                try:
+                    if device_cache is None:
+                        batch = to_device(batch)
+                    if distributed:
+                        signature = signature or _batch_signature(batch)
+                        if _batch_signature(batch) != signature:
+                            raise ValueError("batch keys or shapes differ from the first batch's")
+                except Exception as e:  # noqa: BLE001
+                    error = e
+            have_all, failed = agree(batch is not None, error is not None)
+            if not have_all:
+                break
+            if not failed:
+                try:
+                    loss, objs = current["step_fn"](batch)
+                    losses.append(loss)          # a device scalar: no read-back a step
+                    state.step += 1
+                    continue
+                except Exception as e:  # noqa: BLE001
+                    if distributed:
+                        raise
+                    error = e
+            skipped += 1
+            print(f"warning: skipped batch ({type(error).__name__}: {error})" if error else
+                  "warning: skipped batch (another rank failed to prepare its batch)")
+            if skipped > max(4, len(losses)):
+                raise error or RuntimeError("batches keep failing on another rank")
         if skipped:
             print(f"epoch {epoch}: skipped {skipped} failing batches")
         if not losses:
@@ -829,22 +1019,23 @@ def train_epochs(model: torch.nn.Module, cfg, apply_fn: Callable, make_loss: Cal
         print(f"epoch {epoch}: loss {mean_loss:.5f} ({len(losses)} steps, "
               f"{time.time() - t_start:.0f}s)")
 
-        if len(val_ds) >= bs:
+        if len(val_ds) >= val_bs:
             if val_cache is not None:
-                val_iter = val_cache.iterate(bs, host_rng, shuffle=False)
+                val_iter = val_cache.iterate(bs, host_rng, shuffle=False, rows=rows)
             else:
                 val_iter = (to_device(vb) for vb in iterate_batches(
-                    val_ds, bs, host_rng, shuffle=False, fraction=1.0, collate=staging))
+                    val_ds, val_bs, host_rng, shuffle=False, fraction=1.0, collate=staging))
             val_losses = [float(current["eval_fn"](vb)[0]) for vb in val_iter]
             if val_losses:
                 state.history[-1]["val_loss"] = float(np.mean(val_losses))
                 print(f"epoch {epoch}: val_loss {state.history[-1]['val_loss']:.5f}")
 
         last_epoch = epoch == cfg.training.num_epochs - 1
-        if visualize is not None and (
-                (epoch + 1) % cfg.output.generate_visualizations_every == 0 or last_epoch):
-            state.history[-1].update(visualize(epoch))
         state.model_state = model.state_dict()
         state.opt_state = current["opt"].state_dict()
-        best_val = end_of_epoch_outputs(out_dir, state, cfg, epoch, last_epoch, best_val)
+        if is_primary():
+            if visualize is not None and (
+                    (epoch + 1) % cfg.output.generate_visualizations_every == 0 or last_epoch):
+                state.history[-1].update(visualize(epoch))
+            best_val = end_of_epoch_outputs(out_dir, state, cfg, epoch, last_epoch, best_val)
     return state

@@ -228,3 +228,42 @@ def test_training_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
     assert not any(tmp_path.iterdir())
+
+
+def test_scale_out_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """Serving export and its loader, the sharded fitters and the multi-rank
+    harness default to the card and raise without one, before they write
+    anything; the sharded fitters in one process run on the CPU when asked."""
+    from smilify_tpu_torch import serve
+    from smilify_tpu_torch.cli import export_serving
+    from smilify_tpu_torch.core.spec import toy_model_spec
+    from smilify_tpu_torch.fitter.fitter import FitData
+    from smilify_tpu_torch.fitter.fitter_batch import GridShardedFitter, ShardedBatchedFitter
+    from smilify_tpu_torch.fitter.fitter_frames import ShardedSequenceFitter
+    from smilify_tpu_torch.train import multidevice
+
+    spec = toy_model_spec(device="cpu")
+    data = FitData(rgb=None, sil=torch.zeros((2, 32, 32)), joints=torch.zeros((2, 6, 2)),
+                   visibility=torch.ones((2, 6)))
+    clips = FitData(rgb=None, sil=torch.zeros((2, 2, 32, 32)), joints=torch.zeros((2, 2, 6, 2)),
+                    visibility=torch.ones((2, 2, 6)))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ckpt, out = str(tmp_path / "final_model"), str(tmp_path / "a.pt2z")
+    calls = [
+        lambda: export_serving.main(["--checkpoint", ckpt, "--output", out]),
+        lambda: serve.export_serving_artifact(ckpt, out),
+        lambda: multidevice.main([]),
+        lambda: multidevice.run_trainer_check(),
+        lambda: multidevice.dryrun_multichip(),
+        lambda: serve.load_serving_artifact(out),
+        lambda: serve.ServingModel(out),
+        lambda: ShardedSequenceFitter(spec, data, (32, 32)),
+        lambda: ShardedBatchedFitter(spec, clips, (32, 32)),
+        lambda: GridShardedFitter(spec, clips, (32, 32)),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert not any(tmp_path.iterdir())
+    assert ShardedSequenceFitter(spec, data, (32, 32), device="cpu").n_frames == 2
+    assert GridShardedFitter(spec, clips, (32, 32), device="cpu").n_local == (2, 2)
