@@ -62,7 +62,21 @@ J=55, B=5, made from a seed) and checks their results:
     the one card over gloo: the frame-sharded fit (K1/K2 and K3/K4 on
     every rank, launched as often as in the unsharded fit), the clip- and
     grid-sharded corpus fitters, ``ShardedStageManager`` and config 4b's
-    data-parallel train step, each against its single-process counterpart.
+    data-parallel train step, each against its single-process counterpart;
+  * slice 6 (phase 14), on what phases 8, 9, 11 and 13 leave under
+    ``build/``: ``cli.generate_video`` on phase 8's corpus fit (4 frames at
+    512², frame 0 held to the CPU's render by the Phong gate) and
+    ``--collage``; ``cli.run_inference --video`` on phase 11's checkpoint and
+    its video path on phase 13's 5a checkpoint, every video read back;
+    ``cli.read_fitter_stages`` and ``utils.authoring.build_model_from_registration``
+    on phase 9's registration, the authored model loaded on the card with
+    one exact silhouette (one K1 launch, held to its plain version), the
+    measurement CSVs, ``betas_from_measurements``, the native PCA loader
+    built into ``build/native/`` and ``cli.prepare_meshes`` on phase 9's
+    scans as STL; ``cli.export_gltf`` on phase 11's animation, its keyframes
+    evaluated from the file against ``smil_forward``; ``utils.monitoring``
+    (a trace, ``recommend_batch_size`` for resnet50 and config 4b's step at
+    that batch) and ``cli.show_latest_checkpoint``.
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after. Imports nothing of JAX or of the JAX package ``smilify_tpu``.
@@ -2464,6 +2478,502 @@ def scaleout_phase(card):
     return out
 
 
+# phase 14, slice 6 on the card: the tools on the outputs phases 8, 9, 11
+# and 13 leave under build/. The Phong gate of tests/test_torch_cli.py (face
+# ids equal on ≥ 99.9% of the pixels, the uint8 frames within one level
+# there); the glTF evaluator's tolerance of tests/test_gltf_export.py
+TOOLS_FACE_SHARE, TOOLS_LEVELS = 0.999, 1
+GLTF_TOL = 3e-4
+APPLY_TOL = 1e-6               # PCAMorphData.apply_weights against numpy, float32
+TOOLS_MV_SAMPLES = 8           # the 5a checkpoint's video: random views from a seed
+TOOLS_SMALL_B = 32             # the train step's second batch for the MB a sample
+# betas_from_measurements on the authored model: known betas drawn at 0.5σ of
+# its shape prior, 40 vertex-pair distances, 10 Gauss-Newton steps; the
+# distances held to the JAX test's 0.01 (tests/test_authoring.py), the betas
+# to 0.01 of the largest σ (measured on the H100: 3.3e-7 and 3.4e-6). A model
+# PCA'd from posed fits is far from linear at 2σ: there 12 distances and 5
+# steps left a distance 0.085 off
+BETAS_SPREAD, BETAS_PAIRS, BETAS_ITERS, BETAS_TOL = 0.5, 40, 10, 0.01
+
+
+class Captured:
+    """Within the block, every ``utils.export.write_video`` call's frames and
+    every ``render.phong.rasterize_hard`` call's face ids are kept (the CLIs
+    look both up when they call them)."""
+
+    def __enter__(self):
+        from smilify_tpu_torch.render import phong
+        from smilify_tpu_torch.utils import export
+
+        self.videos, self.face_ids = {}, []
+        self._real = (export.write_video, phong.rasterize_hard)
+        real_write, real_raster = self._real
+
+        def write_video(path, frames, fps=15):
+            self.videos[str(path)] = [np.asarray(f).copy() for f in frames]
+            return real_write(path, frames, fps=fps)
+
+        def rasterize_hard(*args, **kw):
+            out = real_raster(*args, **kw)
+            self.face_ids.append(out[0])
+            return out
+
+        export.write_video, phong.rasterize_hard = write_video, rasterize_hard
+        return self
+
+    def __exit__(self, *exc):
+        from smilify_tpu_torch.render import phong
+        from smilify_tpu_torch.utils import export
+
+        export.write_video, phong.rasterize_hard = self._real
+        return False
+
+
+def read_video(path):
+    """(frames read back through cv2.VideoCapture, the container's frame count)."""
+    import cv2
+
+    cap = cv2.VideoCapture(str(path))
+    frames = []
+    while True:
+        ok, fr = cap.read()
+        if not ok:
+            break
+        frames.append(fr)
+    count = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+    cap.release()
+    return frames, count
+
+
+def check_video(path, n, shape, what):
+    frames, count = read_video(path)
+    check(len(frames) == count == n and all(f.shape == shape for f in frames),
+          f"{what}: {path} reads back {len(frames)} frames (container: {count}) of "
+          f"{frames[0].shape if frames else None}, expected {n} of {shape}")
+
+
+def tools_video(toy, dev, card, work):
+    """(a) generate_video on phase 8's optimize_corpus run (4 frames at 512²),
+    held to the same frames rendered on the CPU (frame 0: a CPU raster of
+    512² takes ~25 s) by the Phong gate; --collage; run_inference --video on
+    phase 11's single-view checkpoint (16 replicAnt frames at 224²); the
+    video path of run_inference on phase 13's 5a checkpoint (the card's
+    machine has no h5py for a multi-view store: the predictions come from
+    TOOLS_MV_SAMPLES random 4-view samples from a seed)."""
+    from smilify_tpu_torch.cli import generate_video, run_inference
+    from smilify_tpu_torch.core.spec import load_model_spec
+    from smilify_tpu_torch.tools.synthetic_data import write_replicant_sequence
+
+    run, model = ROOT / "build" / "smoke_cli" / "corpus", ROOT / "build" / "smoke_cli" / "stick_width.pkl"
+    args = ["--checkpoint-dir", str(run), "--model", str(model), "--size", str(SIZE[0])]
+    out = {}
+    with Captured() as cap:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        generate_video.main(args + ["--output", str(work / "fit.mp4"), "--device", dev.type])
+        secs = time.perf_counter() - t0
+    frames = cap.videos[str(work / "fit.mp4")]
+    n = len(frames)
+    check(n == 4, f"generate_video: {n} frames, expected 4")
+    check_video(work / "fit.mp4", n, SIZE + (3,), "generate_video")
+    out["generate_video"] = {"frames": n, "seconds": secs, "frames_per_s": n / secs}
+    log(f"  generate_video: {n} frames at {SIZE[0]}² rendered (one batched forward) and encoded "
+        f"(mp4v) in {secs:.2f} s = {n / secs:.2f} frames/s, model load included ({card})")
+
+    cpu_spec = load_model_spec(str(model), align_symmetry=False, device="cpu")
+    params = generate_video.read_frame_params(generate_video.frame_dirs(str(run)), "st10_ep0")
+    t0 = time.perf_counter()
+    with Captured() as cpu:
+        cpu_frame = generate_video.render_sequence(cpu_spec, params[:1], SIZE[0])[0]
+    fid, cpu_fid = cap.face_ids[0].cpu().numpy(), cpu.face_ids[0].numpy()
+    same = fid == cpu_fid
+    diff = int(np.abs(frames[0].astype(int) - cpu_frame.astype(int))[same].max())
+    log(f"  frame 0 on the card against the CPU ({time.perf_counter() - t0:.1f} s there): face "
+        f"ids equal on {100 * same.mean():.4f}% of the pixels (gate {100 * TOOLS_FACE_SHARE:g}%), "
+        f"the mesh on {100 * (fid >= 0).mean():.2f}%; max |Δ| there {diff} level(s) "
+        f"(gate {TOOLS_LEVELS})")
+    check(same.mean() >= TOOLS_FACE_SHARE and (fid >= 0).mean() > 0.01 and diff <= TOOLS_LEVELS,
+          "generate_video: the card's frame fails the Phong gate against the CPU's")
+    out["generate_video"].update(face_id_share=float(same.mean()), max_level_diff=diff)
+
+    with Captured() as cap:
+        generate_video.main(args + ["--collage", "--output", str(work / "collage.avi")])
+    collages = cap.videos[str(work / "collage.avi")]
+    check(len(collages) == 4, f"generate_video --collage: {len(collages)} frames")
+    check_video(work / "collage.avi", 4, collages[0].shape, "generate_video --collage")
+    log(f"  generate_video --collage: 4 frames of {collages[0].shape} (MJPG)")
+
+    folder, _ = write_replicant_sequence(str(work / "seq"), toy, SERVE_FRAMES, SERVE_RES,
+                                         layout="unreal")      # phase 11's frames
+    ckpt = str(ROOT / "build" / "smoke_serving" / "run" / "final_model")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_inference.main(["--checkpoint", ckpt, "--data-path", folder, "--render-dir",
+                        str(work / "sv_frames"), "--video", str(work / "sv.mp4"),
+                        "--device", dev.type])
+    secs = time.perf_counter() - t0
+    check_video(work / "sv.mp4", SERVE_FRAMES, (SERVE_RES, SERVE_RES, 3), "run_inference --video")
+    out["run_inference_video"] = {"frames": SERVE_FRAMES, "seconds": secs,
+                                  "frames_per_s": SERVE_FRAMES / secs}
+    log(f"  run_inference --video, phase 11's checkpoint: {SERVE_FRAMES} frames at {SERVE_RES}² "
+        f"predicted, rendered, drawn, written as PNGs and encoded in {secs:.2f} s = "
+        f"{SERVE_FRAMES / secs:.2f} frames/s, model load included ({card})")
+
+    model5a, _, rcfg, spec5a, _ = run_inference.load_model_from_checkpoint(
+        str(ROOT / "build" / "smoke_serving_export" / "config5a" / "final_model"), dev)
+    images, mask, cams = (torch.from_numpy(a).to(dev)
+                          for a in export_inputs("config5a", TOOLS_MV_SAMPLES))
+    preds = run_inference.predictor(model5a, rcfg, spec5a, True)(
+        {"images": images, "view_mask": mask, "camera_indices": cams})
+    traj = {k: v.cpu().numpy() for k, v in preds.items()}
+    t0 = time.perf_counter()
+    grids, per_view = run_inference.render_frames(spec5a, rcfg, traj, SERVE_RES,
+                                                  str(work / "mv_frames"), True)
+    paths = run_inference.write_videos(str(work / "mv.mp4"), grids, per_view)
+    secs = time.perf_counter() - t0
+    V = SERVE_MV_VIEWS
+    check(len(paths) == V + 1, f"5a video: {len(paths)} files")
+    for v in range(V):
+        check_video(work / f"mv_view{v}.mp4", TOOLS_MV_SAMPLES, (SERVE_RES, SERVE_RES, 3),
+                    f"5a view {v}")
+    check_video(work / "mv.mp4", TOOLS_MV_SAMPLES, (SERVE_RES, V * SERVE_RES, 3), "5a grid")
+    out["multiview_video"] = {"frames": TOOLS_MV_SAMPLES, "views": V, "seconds": secs,
+                              "frames_per_s": TOOLS_MV_SAMPLES / secs}
+    log(f"  5a video path: {TOOLS_MV_SAMPLES} frames × {V} views at {SERVE_RES}² rendered, "
+        f"tiled and encoded ({V} view videos + the grid's) in {secs:.2f} s = "
+        f"{TOOLS_MV_SAMPLES / secs:.2f} frames/s ({card})")
+    return out
+
+
+def write_binary_stl(path, verts, faces):
+    """A binary STL of a triangle mesh (zero normals)."""
+    rec = np.zeros(len(faces), dtype=[("n", "<f4", 3), ("v", "<f4", (3, 3)), ("a", "<u2")])
+    rec["v"] = np.asarray(verts, np.float32)[np.asarray(faces)]
+    with open(path, "wb") as f:
+        f.write(b"\0" * 80 + np.uint32(len(faces)).tobytes() + rec.tobytes())
+
+
+def tools_authoring(toy, dev, card, work):
+    """(b) read_fitter_stages on phase 9's registration; a model authored
+    from it (entangled PCA, 5 components) loaded on the card, one forward
+    and one exact soft_silhouette (K1, counted) held to the plain version;
+    both measurement CSVs; betas_from_measurements; the PCA CSV through the
+    native loader; prepare_meshes on phase 9's targets as STL."""
+    import contextlib
+    import csv
+    import io
+
+    from smilify_tpu_torch.cli import prepare_meshes, read_fitter_stages
+    from smilify_tpu_torch.core.lbs import smil_forward
+    from smilify_tpu_torch.core.spec import load_model_spec
+    from smilify_tpu_torch.render import rasterizer as R
+    from smilify_tpu_torch.render.cameras import default_camera
+    from smilify_tpu_torch.utils import authoring, beta_calculator, smil_tools_native
+    from smilify_tpu_torch.utils.export import load_obj
+
+    reg = ROOT / "build" / "smoke_registration"
+    npz = reg / "results" / "batch_0" / "default.npz"
+    data = np.load(npz)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        read_fitter_stages.main(["--npz", str(npz), "--export-obj", str(work / "stages")])
+    lines = buf.getvalue().splitlines()
+    objs = sorted((work / "stages").glob("*.obj"))
+    n = data["verts"].shape[0]
+    check(len(lines) == 1 + 2 * n and len(objs) == n, f"read_fitter_stages: {len(lines)} lines, "
+                                                      f"{len(objs)} OBJ files for {n} scans")
+    v0, f0 = load_obj(str(work / "stages" / f"{data['labels'][0]}.obj"))
+    check(np.abs(v0 - data["verts"][0]).max() <= 1e-6 and np.array_equal(f0, data["faces"]),
+          "read_fitter_stages: an OBJ differs from the npz")
+    log(f"  read_fitter_stages: {lines[0]}; {n} OBJ files")
+
+    t0 = time.perf_counter()     # toy: the registration's template (phase 9)
+    pkl = authoring.build_model_from_registration(str(npz), toy, 5, True, str(work / "authored.pkl"))
+    spec = load_model_spec(pkl, align_symmetry=False, device=dev)
+    check(spec.n_betas == 5 and spec.scaledirs is not None and spec.n_faces == toy.n_faces,
+          "build_model_from_registration: the authored model's shape space")
+    cam = default_camera(device=dev)
+    zero_counts()
+    with torch.no_grad():
+        verts = smil_forward(spec, spec.shape_mean_betas[None], torch.zeros(
+            (1, spec.n_joints, 3), device=dev)).verts[0]
+        pv = cam.world_to_view(verts)
+        ndc = torch.cat([cam.view_to_ndc(pv)[:, :2], pv[:, 2:3]], dim=1)
+        alpha = R.soft_silhouette(ndc, spec.faces, SIZE)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        tri = ndc[spec.faces.long()][None]
+        valid = torch.any(tri[..., 2] > 0.0, dim=-1)
+        S = R.exact_fwd_plain(R._pack_faces(tri[..., :2], valid),
+                              R._tile_cull_mask(tri[..., :2], valid, *SIZE, R.SIGMA), *SIZE, R.SIGMA)
+        plain = 1.0 - torch.exp(-R._tiles_to_image(S, *SIZE))[0]
+    err = float((alpha - plain).abs().max())
+    log(f"  build_model_from_registration ({n} scans, entangled PCA, 5 components) → "
+        f"{Path(pkl).name}, loaded on the card in {time.perf_counter() - t0:.2f} s; its exact "
+        f"silhouette at {SIZE[0]}² covers {float((alpha > 0.5).float().mean()):.4f}, against the "
+        f"plain version max abs err {err:.3g} (gate {ALPHA_ATOL:g}); launches {counts}")
+    check(counts["exact_fwd"] == 1 and sum(counts.values()) == 1,
+          f"the authored model's silhouette: launches {counts}, expected one exact_fwd")
+    check(err <= ALPHA_ATOL and float(alpha.max()) > 0.5, "the authored model's K1 alpha")
+
+    csvs = {}
+    for name in ("export_joint_distances_csv", "export_mesh_measurements_csv"):
+        path = getattr(authoring, name)(spec, str(work / f"{name}.csv"), beta_range=2.0)
+        with open(path, newline="") as f:
+            rows = list(csv.reader(f))
+        vals = np.asarray([[float(x) for x in r if x[:1] in "-.0123456789"] for r in rows[1:]])
+        csvs[name] = len(rows) - 1
+        check(np.isfinite(vals).all() and (vals > 0).all(), f"{name}: values not positive")
+    J, B = spec.n_joints, spec.n_betas
+    check(csvs["export_joint_distances_csv"] == J * (J - 1) // 2
+          and csvs["export_mesh_measurements_csv"] == 2 * B + 1, f"measurement CSVs: {csvs}")
+
+    rng = np.random.RandomState(0)
+    sigma = np.sqrt(np.diag(spec.shape_cov.cpu().double().numpy()))
+    gt = rng.randn(B) * BETAS_SPREAD * sigma
+    vshaped = smil_forward(spec, torch.as_tensor(gt[None], dtype=torch.float32, device=dev),
+                           torch.zeros((1, J, 3), device=dev)).v_shaped[0].cpu().numpy()
+    measurements = {f"m{i}": (int(a), int(b)) for i, (a, b) in enumerate(
+        rng.randint(0, spec.n_verts, (BETAS_PAIRS, 2)))}
+    targets = beta_calculator.measure(vshaped, measurements)
+    betas = beta_calculator.betas_from_measurements(spec, targets, measurements,
+                                                    n_iters=BETAS_ITERS)
+    v_host = spec.v_template.cpu().double().numpy()
+    dirs = spec.shapedirs.cpu().double().numpy().T.reshape(spec.n_verts, 3, B)
+    achieved = beta_calculator.measure(v_host + dirs @ betas, measurements)
+    worst = max(abs(achieved[k] - targets[k]) for k in targets)
+    start = beta_calculator.measure(v_host + dirs @ spec.shape_mean_betas.cpu().double().numpy(),
+                                    measurements)
+    before = max(abs(start[k] - targets[k]) for k in targets)
+    beta_gap = float(np.abs(betas - gt).max() / sigma.max())
+    log(f"  measurement CSVs: {csvs}; betas_from_measurements (known betas drawn at "
+        f"{BETAS_SPREAD}σ of the registrations' spread, σ {np.round(sigma, 3).tolist()}): worst "
+        f"|Δ| over {BETAS_PAIRS} distances {before:.3g} at the mean shape, {worst:.3g} after "
+        f"{BETAS_ITERS} iterations; max |betas − known| / max σ {beta_gap:.3g}")
+    check(worst < BETAS_TOL and worst < before and beta_gap < BETAS_TOL,
+          f"betas_from_measurements: a measurement {worst} off its target (at the start "
+          f"{before}), the betas {beta_gap} of the largest σ from the known ones")
+
+    sd = spec.scaledirs.cpu().double().numpy().transpose(1, 2, 0)     # (J, 3, B)
+    td = spec.transdirs.cpu().double().numpy().transpose(1, 2, 0)
+    path = smil_tools_native.export_pca_csv(str(work / "pca.csv"), list(spec.joint_names), sd, td)
+    t0 = time.perf_counter()
+    morph = smil_tools_native.PCAMorphData(path)
+    build_s = time.perf_counter() - t0
+    w = smil_tools_native.generate_weights(morph.num_components, 1.0, seed=3)
+    scale, trans = morph.apply_weights(w)
+    gap = max(float(np.abs(scale - (1.0 + morph.scaledirs @ w)).max()),
+              float(np.abs(trans - morph.transdirs @ w).max()))
+    log(f"  PCAMorphData ({smil_tools_native.library_path().name}, built and loaded in "
+        f"{build_s:.2f} s): {morph.num_bones} bones × {morph.num_components} components; "
+        f"apply_weights against numpy max |Δ| {gap:.3g} (gate {APPLY_TOL:g})")
+    check(morph.num_bones == J and morph.num_components == B and gap <= APPLY_TOL
+          and np.abs(morph.scaledirs - sd).max() < 1e-6, "PCAMorphData")
+
+    stl = work / "stl"
+    stl.mkdir()
+    for p in sorted((reg / "scans").glob("*.obj")):
+        write_binary_stl(stl / (p.stem + ".stl"), *load_obj(str(p)))
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        prepare_meshes.main([str(stl), str(work / "prepared"), "--max-vertices", "3000"])
+    with open(work / "prepared" / "stats.csv", newline="") as f:
+        rows = list(csv.DictReader(f))
+    log(f"  prepare_meshes: {len(rows)} STL scans in {time.perf_counter() - t0:.2f} s; the "
+        f"first {dict((k, rows[0][k]) for k in ('n_vertices', 'n_faces', 'n_components', 'n_holes', 'out_vertices'))}")
+    n_faces = len(load_obj(str(reg / "scans" / "scan0.obj"))[1])
+    check(len(rows) == n and all(int(r["n_faces"]) == n_faces and int(r["n_components"]) == 1
+                                 and 0 < int(r["out_vertices"]) <= 3000 for r in rows),
+          f"prepare_meshes: the stats rows {rows[:1]}")
+    return {"authored_alpha_err": err, "k1_launches": counts["exact_fwd"], "betas_worst": worst,
+            "betas_gap": beta_gap, "pca_apply_gap": gap}
+
+
+def numpy_glb_vertices(gltf, blob, frame):
+    """World-space skinned vertices of a ``.glb`` at keyframe ``frame``,
+    from the file alone: the nodes' TRS composed through the scene, glTF
+    skinning (joint world matrix × inverse bind matrix, 4 influences) and
+    morph targets (as tests/test_gltf_export.py evaluates the JAX package's
+    files; that evaluator cannot be imported here)."""
+    from smilify_tpu_torch.utils.gltf_export import read_accessor
+
+    def quat(q):
+        x, y, z, w = q
+        return np.array([[1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)],
+                         [2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)],
+                         [2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)]])
+
+    anim = gltf["animations"][0]
+    animated, morph = {}, None
+    for ch in anim["channels"]:
+        samp = anim["samplers"][ch["sampler"]]
+        n = read_accessor(gltf, blob, samp["input"]).shape[0]
+        vals = read_accessor(gltf, blob, samp["output"]).reshape(n, -1)[frame]
+        if ch["target"]["path"] == "weights":
+            morph = vals
+        else:
+            animated.setdefault(ch["target"]["node"], {})[ch["target"]["path"]] = vals
+    nodes, world = gltf["nodes"], {}
+
+    def visit(nid, parent):
+        props = {**nodes[nid], **animated.get(nid, {})}
+        M = np.eye(4)
+        M[:3, :3] = quat(np.asarray(props.get("rotation", (0, 0, 0, 1)), np.float64)) * \
+            np.asarray(props.get("scale", (1, 1, 1)), np.float64)[None]
+        M[:3, 3] = props.get("translation", (0, 0, 0))
+        world[nid] = parent @ M
+        for c in nodes[nid].get("children", []):
+            visit(c, world[nid])
+
+    for root in gltf["scenes"][gltf["scene"]]["nodes"]:
+        visit(root, np.eye(4))
+    mesh_node = next(i for i, nd in enumerate(nodes) if "mesh" in nd)
+    mesh = gltf["meshes"][nodes[mesh_node]["mesh"]]
+    prim = mesh["primitives"][0]
+    pos = read_accessor(gltf, blob, prim["attributes"]["POSITION"]).astype(np.float64)
+    for k, tgt in enumerate(prim.get("targets", [])):
+        w = morph if morph is not None else mesh["weights"]
+        pos = pos + w[k] * read_accessor(gltf, blob, tgt["POSITION"]).astype(np.float64)
+    jid = read_accessor(gltf, blob, prim["attributes"]["JOINTS_0"]).astype(np.int64)
+    jw = read_accessor(gltf, blob, prim["attributes"]["WEIGHTS_0"]).astype(np.float64)
+    skin = gltf["skins"][nodes[mesh_node]["skin"]]
+    ibm = read_accessor(gltf, blob, skin["inverseBindMatrices"]).astype(np.float64)
+    ibm = ibm.reshape(-1, 4, 4).transpose(0, 2, 1)
+    mats = np.stack([world[j] @ ibm[k] for k, j in enumerate(skin["joints"])])
+    homo = np.concatenate([pos, np.ones((len(pos), 1))], axis=1)
+    return sum(jw[:, k:k + 1] * np.einsum("vab,vb->va", mats[jid[:, k]][:, :3], homo)
+               for k in range(4))
+
+
+def tools_gltf(dev, work):
+    """(c) export_gltf on phase 11's animation; each keyframe's skinned
+    vertices, evaluated from the file, held to smil_forward on the card. The
+    STICK-width spec skins each vertex to all 55 joints, which glTF (4
+    influences a vertex) cannot carry: the export and the forward use its
+    four-influence copy (each vertex's 4 heaviest weights, renormalized), as
+    the JAX package's test uses models whose skins have at most 4."""
+    import dataclasses
+    import warnings
+
+    from smilify_tpu_torch.cli import export_gltf
+    from smilify_tpu_torch.core.lbs import smil_forward
+    from smilify_tpu_torch.core.spec import load_model_spec
+    from smilify_tpu_torch.tools.synthetic_data import write_model_pkl
+    from smilify_tpu_torch.utils.animation_export import load_animation
+    from smilify_tpu_torch.utils.gltf_export import load_glb
+
+    serving = ROOT / "build" / "smoke_serving"
+    dense = load_model_spec(str(serving / "stick_width.pkl"), align_symmetry=False, device=dev)
+    w = dense.weights
+    w = torch.where(w >= torch.topk(w, 4, dim=1).values[:, 3:], w, torch.zeros_like(w))
+    pkl = write_model_pkl(str(work / "stick_width_4.pkl"), dataclasses.replace(
+        dense, weights=w / w.sum(1, keepdim=True)))
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out = export_gltf.main(["--model", pkl, "--animation", str(serving / "anim.npz"),
+                                "--out", str(work / "anim.glb"), "--device", dev.type])
+    secs = time.perf_counter() - t0
+    gltf, blob = load_glb(out)
+    extras = gltf["extras"]["smilify_tpu"]
+    spec = load_model_spec(pkl, align_symmetry=False, device=dev)
+    data, _ = load_animation(str(serving / "anim.npz"))
+    F, J = data["poses"].shape[0], spec.n_joints
+    theta = np.concatenate([data["poses"][:, :3].reshape(F, 1, 3),
+                            data["poses"][:, 3:].reshape(F, J - 1, 3)], axis=1)
+    betas = np.asarray(data["betas_per_frame"] if "betas_per_frame" in data else data["betas"][None],
+                       np.float64).mean(axis=0)[:spec.n_betas]
+    with torch.no_grad():
+        want = smil_forward(
+            spec, torch.as_tensor(np.tile(betas, (F, 1)), dtype=torch.float32, device=dev),
+            torch.as_tensor(theta, dtype=torch.float32, device=dev),
+            trans=torch.as_tensor(data["trans"], dtype=torch.float32, device=dev)).verts.cpu().numpy()
+    gaps = [float(np.abs(numpy_glb_vertices(gltf, blob, f) - want[f]).max()) for f in range(F)]
+    log(f"  export_gltf on phase 11's animation ({F} frames): {Path(out).stat().st_size} bytes, "
+        f"mode {extras['mode']}, animate_shape {extras['animate_shape']}, in {secs:.2f} s; "
+        f"warnings {[str(c.message)[:60] for c in caught]}; keyframes against smil_forward on the "
+        f"card: max |Δ| {max(gaps):.3g} (gate {GLTF_TOL:g})")
+    check(extras["num_frames"] == F == SERVE_FRAMES and max(gaps) <= GLTF_TOL,
+          f"export_gltf: keyframes {max(gaps)} off the forward")
+    return {"frames": F, "max_abs_err": max(gaps), "bytes": Path(out).stat().st_size}
+
+
+def tools_monitoring(spec, dev, card, work):
+    """(d) profile_trace around the authored forward; recommend_batch_size
+    for resnet50 from the card's memory, then one config-4b train step (bf16,
+    224²) at that batch and at TOOLS_SMALL_B: the peak memory and the MB a
+    sample between the two, beside the table's estimate; show_latest_checkpoint
+    on phase 8's runs."""
+    import contextlib
+    import io
+
+    from smilify_tpu_torch.cli import show_latest_checkpoint
+    from smilify_tpu_torch.core.lbs import smil_forward
+    from smilify_tpu_torch.tools import bench_all
+    from smilify_tpu_torch.utils import monitoring
+
+    with monitoring.profile_trace(str(work / "trace")):
+        smil_forward(spec, torch.zeros((8, spec.n_betas), device=dev),
+                     torch.zeros((8, spec.n_joints, 3), device=dev))
+        torch.cuda.synchronize()
+    traces = list((work / "trace").iterdir())
+    check(len(traces) == 1 and traces[0].stat().st_size > 0, f"profile_trace: {traces}")
+    log(f"  profile_trace: {traces[0].name}, {traces[0].stat().st_size} bytes; device memory "
+        f"{ {k: round(v, 1) for k, v in monitoring.device_memory_stats().items()} } MB")
+
+    rec = monitoring.recommend_batch_size("resnet50")
+    B = rec["recommended_batch_size"]
+    torch.cuda.empty_cache()
+    _, model, step, make_batch = bench_all.singleview_train_setup(spec)
+    rng = np.random.RandomState(0)
+    peaks = {}
+    for b in (TOOLS_SMALL_B, TOOLS_SMALL_B, B):     # the first step makes Adam's state
+        batch = make_batch(b, rng)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        loss = step(batch)[0]
+        check(math.isfinite(float(loss)), f"config 4b at B={b}: non-finite loss")
+        peaks[b] = (torch.cuda.max_memory_allocated() - base) / 1e6
+        del batch
+    per_sample = (peaks[B] - peaks[TOOLS_SMALL_B]) / (B - TOOLS_SMALL_B)
+    total = torch.cuda.get_device_properties(dev).total_memory / 1e9
+    log(f"  recommend_batch_size('resnet50') from {rec['hbm_gb']:.1f} GB: B={B} (estimates: "
+        f"{rec['per_sample_mb']:.0f} MB a sample, {rec['fixed_mb']} MB fixed); one config-4b step "
+        f"(bf16, 224²) at B={B}: peak {peaks[B]:.0f} MB above the model and optimizer state "
+        f"({100 * peaks[B] / 1e3 / total:.1f}% of the card), at B={TOOLS_SMALL_B} "
+        f"{peaks[TOOLS_SMALL_B]:.0f} MB: measured {per_sample:.1f} MB a sample ({card})")
+    del model, step
+    torch.cuda.empty_cache()
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        show_latest_checkpoint.main(["--root", str(ROOT / "build" / "smoke_cli")])
+    lines = buf.getvalue().splitlines()
+    check(lines[0].startswith(f"run: {ROOT / 'build' / 'smoke_cli' / 'corpus'} (4 frames)")
+          and all(ln.endswith("st10_ep0.png") for ln in lines[1:]), f"show_latest_checkpoint: {lines}")
+    log(f"  show_latest_checkpoint: {lines[0]}")
+    return {"recommended_batch": B, "peak_mb": peaks[B], "peak_mb_small": peaks[TOOLS_SMALL_B],
+            "measured_mb_per_sample": per_sample, "estimate_mb_per_sample": rec["per_sample_mb"]}
+
+
+def tools_phase(toy, dev, card):
+    """Phase 14: slice 6's tools on the card (see the module docstring)."""
+    work = ROOT / "build" / "smoke_tools"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    out = {}
+    for part, fn in (("video", lambda: tools_video(toy, dev, card, work)),
+                     ("authoring", lambda: tools_authoring(toy, dev, card, work)),
+                     ("gltf", lambda: tools_gltf(dev, work)),
+                     ("monitoring", lambda: tools_monitoring(toy, dev, card, work))):
+        t0 = time.perf_counter()
+        out[part] = fn()
+        out[part]["phase_seconds"] = time.perf_counter() - t0
+        log(f"  ({part}: {out[part]['phase_seconds']:.1f} s)")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs an NVIDIA GPU")
@@ -2486,7 +2996,7 @@ def main():
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
 
-    log("[1/13] build")
+    log("[1/14] build")
     t0 = time.perf_counter()
     libs = _kernels.build_all()
     log(f"  built {', '.join(p.name for p in libs.values())} in {time.perf_counter() - t0:.1f} s")
@@ -2506,7 +3016,7 @@ def main():
     spec, spec_name = load_spec(device=dev)
     log(f"  spec: {spec_name}, B={spec.n_betas}")
 
-    log("[2/13] kernels against their plain versions at the driven paths' shapes")
+    log("[2/14] kernels against their plain versions at the driven paths' shapes")
     shape = source_constants(RASTER_CU.read_text(), FWD_SHAPE + BWD_SHAPE)
     log(f"  launch shapes (csrc/raster.cu): {shape}")
     raster = ("exact_fwd", "exact_bwd", "worklist_fwd", "worklist_bwd")
@@ -2525,7 +3035,7 @@ def main():
     for n_frames, size in ((1, SIZE),) + shapes:
         kernel_phase(spec, n_frames, size, dev, saturating=True)
     records.append(peak_phase(dev))
-    log("[3/13] main path: SmalFitter, 4 stages × 10 steps, 1 frame at 512²")
+    log("[3/14] main path: SmalFitter, 4 stages × 10 steps, 1 frame at 512²")
     data = synthetic_fit_data(spec, 1, SIZE)
     cover = float(data.sil.mean())
     log(f"  target silhouette covers {cover:.4f} of the image")
@@ -2570,35 +3080,35 @@ def main():
     log(f"  IoU of capped (cap {cap}) against exact on the exact fit's pose: {iou_cap:.4f}")
     check(iou_cap >= 0.99, "capped raster IoU against exact below 0.99")
 
-    log("[4/13] references")
+    log("[4/14] references")
     reference_phase(spec, dev)
 
-    log("[5/13] where the time goes: 1 and 10 frames")
+    log("[5/14] where the time goes: 1 and 10 frames")
     data10 = synthetic_fit_data(spec, 10, SIZE)
     for frames, d in ((1, data), (10, data10)):
         for mode, (mode_cap, _) in modes.items():
             profile_phase(spec, d, dev, f"{mode}, {frames} frame(s),", mode_cap)
 
-    log("[6/13] bench path: bench, bench_all configs 1, 3, 3b, 3c (short windows)")
+    log("[6/14] bench path: bench, bench_all configs 1, 3, 3b, 3c (short windows)")
     bench_counts = bench_phase(spec, spec_name, dev)
     records[4]["launches"] = bench_counts["fma_peak"]
 
-    log("[7/13] batched and progressive fitters, bench_corpus")
+    log("[7/14] batched and progressive fitters, bench_corpus")
     batched_phase(spec, spec_name, dev)
 
-    log("[8/13] fitter CLIs: optimize_to_joints (capped, exact, texture), optimize_corpus at 512²")
+    log("[8/14] fitter CLIs: optimize_to_joints (capped, exact, texture), optimize_corpus at 512²")
     cli_phase(spec, dev, card)
 
-    log("[9/13] 3D registration: 8 targets, 2 stages; bench_all config2")
+    log("[9/14] 3D registration: 8 targets, 2 stages; bench_all config2")
     registration_phase(spec, dev, card)
 
-    log("[10/13] data pipeline: synthesize_multiview (1,600 samples, 4 views at 96²), "
+    log("[10/14] data pipeline: synthesize_multiview (1,600 samples, 4 views at 96²), "
         "DeviceDataCache, HDF5")
     t0 = time.perf_counter()
     records[0]["data_pipeline"] = data_phase(spec, dev, card)
     log(f"  phase 10: {time.perf_counter() - t0:.1f} s")
 
-    log("[11/13] neural serving: configs 4/5a card vs CPU, run_inference, multi-view serving, "
+    log("[11/14] neural serving: configs 4/5a card vs CPU, run_inference, multi-view serving, "
         "bench_all configs 4/5a/5b, config 4's profile")
     t0 = time.perf_counter()
     serving = serving_phase(spec, dev, card)
@@ -2606,7 +3116,7 @@ def main():
     records[0]["serving_data"] = serving["multiview_data"]["k1"]
     log("serving " + json.dumps(serving))
 
-    log("[12/13] training: bench_all configs 4b/4c/5c and 4b's profile, one float32 step card "
+    log("[12/14] training: bench_all configs 4b/4c/5c and 4b's profile, one float32 step card "
         "vs CPU, a learning check from DeviceDataCache, train_regressor (cache and host "
         "pipeline) then run_inference, train_pointnet, the input-pipeline bench")
     t0 = time.perf_counter()
@@ -2615,7 +3125,7 @@ def main():
     records[0]["training_data_launches"] = training["learning"]["k1_launches"]
     log("training " + json.dumps(training, default=float))
 
-    log("[13/13] slice 5: serving export (configs 4/5a, a fresh process, B=1/8/128); the "
+    log("[13/14] slice 5: serving export (configs 4/5a, a fresh process, B=1/8/128); the "
         "sharded fitters and config 4b's data-parallel step on 1 rank over NCCL and on 2 ranks "
         "of the card over gloo")
     t0 = time.perf_counter()
@@ -2629,6 +3139,16 @@ def main():
             f"{key.split('_')[0]}_rank{r['rank']}": r["sequence"][mode]["launches"][rec["name"]]
             for key, run in scale.items() for r in run["ranks"]}
     log("scaleout " + json.dumps({"export": export, "scaleout": scale}, default=float))
+
+    log("[14/14] slice 6, the tools: generate_video and run_inference --video; authoring from "
+        "phase 9's registration (K1 once on the authored model), the native PCA loader, "
+        "prepare_meshes; export_gltf on phase 11's animation; monitoring")
+    t0 = time.perf_counter()
+    zero_counts()
+    tools = tools_phase(spec, dev, card)
+    log(f"  phase 14: {time.perf_counter() - t0:.1f} s")
+    records[0]["authoring_launches"] = tools["authoring"]["k1_launches"]
+    log("tools " + json.dumps(tools, default=float))
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}), flush=True)

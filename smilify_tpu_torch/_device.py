@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import subprocess
 
+import numpy as np
 import torch
 
 
@@ -15,6 +16,12 @@ def resolve_device(device="cuda") -> torch.device:
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def to_host(x) -> np.ndarray:
+    """A tensor (on any device) or an array-like as a numpy array: how the
+    host-side numpy modules read a spec's tensors."""
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 def card_line() -> str:

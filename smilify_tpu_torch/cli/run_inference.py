@@ -4,10 +4,13 @@
 Loads a checkpoint and the config in its ``.meta.json``, predicts over a
 dataset (a replicAnt folder, an HDF5 store, or a raw video with the
 ``default``/``centred``/``bbox_crop`` crop modes) in batches, optionally
-smooths the parameter trajectory, exports an AMASS-style animation and
+smooths the parameter trajectory, exports an AMASS-style animation,
 renders each frame (Phong, with the joints drawn; multi-view frames as a
-grid of the views) to PNGs. ``predictions.npz`` is written beside the
-checkpoint.
+grid of the views) to PNGs and writes them as a video (multi-view: one
+video a view, ``{base}_view{v}{ext}``, and the grid's at ``--video``).
+``--video`` without ``--render-dir`` renders into the config's
+``output.visualizations_dir`` beside the checkpoint. ``predictions.npz`` is
+written beside the checkpoint.
 
 Precision: the model's backbone runs under bf16 autocast when the config
 asks for mixed precision (``training.use_mixed_precision``); the heads, the
@@ -16,7 +19,7 @@ decode, the SMIL forward and the projection run in float32 with TF32 off.
 Usage:
   python -m smilify_tpu_torch.cli.run_inference --checkpoint runs/sv/final_model \\
       --data-path <dir|h5|video> [--smooth-window 5] [--export-animation out.npz] \\
-      [--render-dir out_frames] [--device cuda]
+      [--render-dir out_frames] [--video out.mp4] [--device cuda]
 
 ``--shard`` splits each batch over every visible card, the model
 replicated on each (the JAX CLI's batches sharded over the local devices).
@@ -38,8 +41,7 @@ import torch
 from smilify_tpu_torch._device import resolve_device
 
 RENDER_CHUNK = 8   # single-view frames rendered between two host fetches
-LEFT_OUT = ("--video (an mp4 of the rendered frames) waits for utils/export.py::write_video, "
-            "which comes with the remaining tools.")
+VIDEO_FPS = 15
 
 
 def discover_checkpoint(path: str) -> str:
@@ -142,7 +144,9 @@ def render_frames(spec, rcfg, traj, res, render_dir, multiview: bool):
     ``render_dir/frame_%05d.png``: single-view frames RENDER_CHUNK at a time
     (the last chunk's indices clamped to the last frame) with one host
     fetch a chunk; multi-view frames view by view, tiled in rows of ≤ 4
-    views. Returns the frames' count."""
+    views. Returns (the frames as written, uint8 (H, W, 3) each; for
+    multi-view the frames of each view, else None), so that a video needs
+    no second render."""
     from smilify_tpu_torch.models.regressor import float32_region, forward_model
     from smilify_tpu_torch.utils.image_io import write_png
     from smilify_tpu_torch.utils.visualization import draw_joints
@@ -151,10 +155,12 @@ def render_frames(spec, rcfg, traj, res, render_dir, multiview: bool):
     dev = spec.device
     preds = {k: torch.as_tensor(v, device=dev) for k, v in traj.items()}
     n = preds["global_rot"].shape[0]
+    frames = []
     with torch.no_grad(), float32_region(dev):
         verts, joints3d = forward_model(spec, preds, use_ue_scaling=rcfg.use_ue_scaling)
         if multiview:
             V = preds["view_fov"].shape[1]
+            per_view = [[] for _ in range(V)]
             for i in range(n):
                 views = [render_frame(spec, verts[i], joints3d[i], preds["view_cam_rot"][i, v],
                                       preds["view_cam_trans"][i, v], preds["view_fov"][i, v], res)
@@ -162,13 +168,16 @@ def render_frames(spec, rcfg, traj, res, render_dir, multiview: bool):
                 imgs = torch.stack([u8 for u8, _ in views]).cpu().numpy()
                 kps = torch.stack([kp for _, kp in views]).cpu().numpy()
                 row = [draw_joints(imgs[v], kps[v]) for v in range(V)]
+                for v in range(V):
+                    per_view[v].append(row[v])
                 cols = min(4, V)
                 rows_n = -(-V // cols)
                 row += [np.zeros_like(row[0])] * (rows_n * cols - V)
                 grid = np.concatenate([np.concatenate(row[r * cols:(r + 1) * cols], axis=1)
                                        for r in range(rows_n)], axis=0)
+                frames.append(grid)
                 write_png(os.path.join(render_dir, f"frame_{i:05d}.png"), grid)
-            return n
+            return frames, per_view
         C = max(1, min(RENDER_CHUNK, n))
         for lo in range(0, n, C):
             idx = [min(lo + j, n - 1) for j in range(C)]
@@ -177,20 +186,38 @@ def render_frames(spec, rcfg, traj, res, render_dir, multiview: bool):
             imgs = torch.stack([u8 for u8, _ in out]).cpu().numpy()
             kps = torch.stack([kp for _, kp in out]).cpu().numpy()
             for j in range(min(C, n - lo)):
-                write_png(os.path.join(render_dir, f"frame_{lo + j:05d}.png"),
-                          draw_joints(imgs[j], kps[j]))
-    return n
+                frames.append(draw_joints(imgs[j], kps[j]))
+                write_png(os.path.join(render_dir, f"frame_{lo + j:05d}.png"), frames[-1])
+    return frames, None
+
+
+def write_videos(path, frames, per_view, fps=VIDEO_FPS):
+    """``frames`` as a video at ``path``; with ``per_view`` (multi-view), first
+    each view's frames at ``{base}_view{v}{ext}``. Returns the paths written."""
+    from smilify_tpu_torch.utils.export import write_video
+
+    written = []
+    if per_view is not None:
+        base, ext = os.path.splitext(path)
+        for v, view_frames in enumerate(per_view):
+            written.append(write_video(f"{base}_view{v}{ext}", view_frames, fps=fps))
+        print(f"per-view videos → {base}_view*.{ext.lstrip('.')}")
+    written.append(write_video(path, frames, fps=fps))
+    print(f"video → {path}")
+    return written
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(description="SMIL neural inference", epilog="Not ported yet: "
-                                 + LEFT_OUT)
+    ap = argparse.ArgumentParser(description="SMIL neural inference")
     ap.add_argument("--checkpoint", required=True)
     ap.add_argument("--data-path", required=True)
     ap.add_argument("--batch-size", type=int, default=8)
     ap.add_argument("--smooth-window", type=int, default=0)
     ap.add_argument("--export-animation", default=None)
     ap.add_argument("--render-dir", default=None)
+    ap.add_argument("--video", default=None,
+                    help="video of the rendered frames (.mp4: mp4v, else MJPG); multi-view "
+                         "adds one a view")
     ap.add_argument("--max-frames", type=int, default=None)
     ap.add_argument("--crop-mode", choices=["default", "centred", "bbox_crop"],
                     default="default", help="raw-video input crop mode")
@@ -281,9 +308,14 @@ def main(argv=None):
             )
         print(f"animation → {rec.export(args.export_animation)}")
 
-    if args.render_dir:
-        count = render_frames(spec, rcfg, traj, res, args.render_dir, is_mv)
-        print(f"{count} frames rendered on {dev} → {args.render_dir}")
+    if args.render_dir or args.video:
+        render_dir = args.render_dir or os.path.join(
+            os.path.dirname(discover_checkpoint(args.checkpoint)) or ".",
+            cfg.output.visualizations_dir)
+        frames, per_view = render_frames(spec, rcfg, traj, res, render_dir, is_mv)
+        print(f"{len(frames)} frames rendered on {dev} → {render_dir}")
+        if args.video:
+            write_videos(args.video, frames, per_view)
 
     out_npz = os.path.join(os.path.dirname(args.checkpoint) or ".", "predictions.npz")
     np.savez(out_npz, **traj)

@@ -5,7 +5,8 @@ Per frame and stage/epoch :class:`ImageExporter` writes a collage PNG, a
 parameter pkl and the posed mesh as ascii PLY, in the JAX package's layout
 ``<output_dir>/<frame>/st{stage}_ep{epoch}.{png,pkl,ply}``. The PNG goes
 through :mod:`smilify_tpu_torch.utils.image_io`, since the card's machine
-has no imageio. Not ported yet: ``write_video`` (it needs OpenCV).
+has no imageio. :func:`write_video` encodes frames with OpenCV, which the
+card's machine has.
 """
 
 from __future__ import annotations
@@ -118,3 +119,32 @@ def load_fitter_checkpoint(checkpoint_dir: str, filenames, stage: int, epoch) ->
         "joint_trans": np.asarray(per_frame[0]["betas_trans"]),
     }
     return out
+
+
+def write_video(path: str, frames, fps: int = 15) -> str:
+    """Write an mp4 (``mp4v``) or, for any other extension, an ``MJPG`` video
+    of (H, W, 3) uint8 RGB frames through OpenCV.
+
+    Unlike the JAX version, this raises where OpenCV would write nothing
+    without saying so: when the writer does not open (a missing directory,
+    a codec this OpenCV build lacks) and when a frame's size differs from
+    the first frame's (``VideoWriter.write`` drops such a frame)."""
+    import cv2
+
+    if not len(frames):
+        raise ValueError("no frames")
+    H, W = frames[0].shape[:2]
+    codec = "mp4v" if path.endswith(".mp4") else "MJPG"
+    vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*codec), fps, (W, H))
+    if not vw.isOpened():
+        raise OSError(f"cv2.VideoWriter could not open {path} (fourcc {codec}, "
+                      f"OpenCV {cv2.__version__})")
+    try:
+        for i, fr in enumerate(frames):
+            if fr.shape[:2] != (H, W) or fr.dtype != np.uint8:
+                raise ValueError(f"{path}: frame {i} is {fr.dtype} {fr.shape[:2]}, the first "
+                                 f"frame uint8 {(H, W)}")
+            vw.write(cv2.cvtColor(np.ascontiguousarray(fr), cv2.COLOR_RGB2BGR))
+    finally:
+        vw.release()
+    return path

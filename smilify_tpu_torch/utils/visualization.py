@@ -16,6 +16,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from smilify_tpu_torch._device import to_host
+
 # MARKER_STAR's four lines through the joint, as (dx, dy) steps
 _STAR_STEPS = ((1, 0), (0, 1), (1, 1), (1, -1))
 
@@ -87,8 +89,8 @@ def fit_collage(
 def silhouette_iou(a, b, threshold: float = 0.5) -> float:
     """IoU between two silhouettes (soft maps thresholded at ``threshold``;
     tensors on any device or arrays); 1.0 when both are empty."""
-    A = _host(a) > threshold
-    B = _host(b) > threshold
+    A = to_host(a) > threshold
+    B = to_host(b) > threshold
     inter = np.logical_and(A, B).sum()
     union = np.logical_or(A, B).sum()
     return float(inter) / float(union) if union else 1.0
@@ -96,15 +98,11 @@ def silhouette_iou(a, b, threshold: float = 0.5) -> float:
 
 def pck(pred_yx, gt_yx, visibility, threshold_px: float) -> float:
     """Percentage of correct keypoints at a pixel threshold."""
-    err = np.linalg.norm(_host(pred_yx) - _host(gt_yx), axis=-1)
-    vis = _host(visibility) > 0
+    err = np.linalg.norm(to_host(pred_yx) - to_host(gt_yx), axis=-1)
+    vis = to_host(visibility) > 0
     if not vis.any():
         return 0.0
     return float((err[vis] <= threshold_px).mean())
-
-
-def _host(x) -> np.ndarray:
-    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 # ---------------------------------------------------------------------------
@@ -126,8 +124,8 @@ def plot_mesh(verts, faces, out_path: str, title: str = "", color="lightblue",
               elev: float = 20.0, azim: float = -60.0):
     """Matplotlib trisurf plot of a mesh (reference plot_mesh)."""
     plt = _pyplot()
-    v = _host(verts)
-    f = _host(faces)
+    v = to_host(verts)
+    f = to_host(faces)
     fig = plt.figure(figsize=(6, 6))
     ax = fig.add_subplot(projection="3d")
     ax.plot_trisurf(v[:, 0], v[:, 1], v[:, 2], triangles=f, color=color,
@@ -148,7 +146,7 @@ def plot_pointclouds(clouds, out_path: str, labels=None, title: str = ""):
     ax = fig.add_subplot(projection="3d")
     allpts = []
     for i, c in enumerate(clouds):
-        c = _host(c)
+        c = to_host(c)
         allpts.append(c)
         ax.scatter(c[:, 0], c[:, 1], c[:, 2], s=4,
                    label=(labels[i] if labels else f"cloud {i}"))
@@ -168,9 +166,9 @@ def plot_mesh_heatmap(verts, faces, face_values, out_path: str, title: str = "",
     import matplotlib.cm as cm
     from mpl_toolkits.mplot3d.art3d import Poly3DCollection
 
-    v = _host(verts)
-    f = _host(faces)
-    vals = _host(face_values).astype(np.float64)
+    v = to_host(verts)
+    f = to_host(faces)
+    vals = to_host(face_values).astype(np.float64)
     rng = vals.max() - vals.min()
     norm = (vals - vals.min()) / (rng if rng > 0 else 1.0)
     colors = cm.get_cmap(cmap)(norm)
@@ -210,9 +208,9 @@ def render_scene_debug(spec, camera, verts, keypoints_3d=None, image_size=(256, 
     verts = torch.as_tensor(verts, dtype=torch.float32, device=spec.device)
     pv = camera.world_to_view(verts)
     ndc = torch.cat([camera.view_to_ndc(pv)[:, :2], pv[:, 2:3]], dim=1)
-    img = _host(render_phong(verts, pv, ndc, spec.faces, (H, W)))
+    img = to_host(render_phong(verts, pv, ndc, spec.faces, (H, W)))
     if keypoints_3d is not None:
         kp = torch.as_tensor(keypoints_3d, dtype=torch.float32, device=spec.device)
-        yx = _host(camera.project_points_yx(kp, (H, W)))
+        yx = to_host(camera.project_points_yx(kp, (H, W)))
         img = draw_joints(img, yx, np.ones(len(yx)), marker_size=sphere_px)
     return img

@@ -9,14 +9,18 @@
   matplotlib and yaml only inside the functions that the card never calls).
 * An entry point given no device runs on ``cuda`` or raises; it never falls
   back to the CPU on its own.
-* Every module of the port imports.
+* Every module of the port imports, slice 6's (the last modules of the JAX
+  package) among them; their CLIs' ``--help`` and ``run_inference --video``
+  run in a process where importing JAX or the JAX package fails.
 """
 
 import tests._torch_threads  # noqa: F401  (first: torch's thread share of a worker)
 
 import ast
 import importlib
+import os
 import pathlib
+import pickle
 import sys
 
 import numpy as np
@@ -27,6 +31,32 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "smilify_tpu")
 # what the card's machine has, besides the standard library
 CARD_PACKAGES = {"numpy", "scipy", "torch", "smilify_tpu_torch"}
+
+
+# slice 6: the modules it added and the ones it completed
+SLICE6_MODULES = tuple(f"smilify_tpu_torch.{m}" for m in (
+    "utils.gltf_export", "utils.mesh_prep", "utils.monitoring", "utils.smil_tools_native",
+    "utils.beta_calculator", "utils.authoring", "utils.export", "cli.export_gltf",
+    "cli.generate_video", "cli.prepare_meshes", "cli.plot_pca_data", "cli.read_fitter_stages",
+    "cli.show_latest_checkpoint", "cli.run_inference"))
+# run before the module: importing JAX or the JAX package fails, as on the card's machine
+NO_JAX = (
+    "import importlib.abc, runpy, sys\n"
+    "class NoJax(importlib.abc.MetaPathFinder):\n"
+    "    def find_spec(self, name, path=None, target=None):\n"
+    "        if name.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'smilify_tpu'):\n"
+    "            raise ImportError('no ' + name + ' here')\n"
+    "sys.meta_path.insert(0, NoJax())\n"
+    "sys.argv = sys.argv[1:]\n"
+    "runpy.run_module(sys.argv[0], run_name='__main__', alter_sys=True)\n")
+
+
+def _no_jax(module, *args, cwd=REPO):
+    import subprocess
+
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    return subprocess.run([sys.executable, "-c", NO_JAX, module, *args], capture_output=True,
+                          text=True, timeout=300, cwd=cwd, env=env)
 
 
 def _port_files():
@@ -74,6 +104,7 @@ def test_scans_cover_every_port_module():
     files = [f.relative_to(REPO).with_suffix("") for f in _port_files()]
     modules = [".".join(f.parts) for f in files if f.parts[0] == "smilify_tpu_torch"]
     assert "smilify_tpu_torch.train.trainer" in modules and "smilify_tpu_torch.cli.sleap_tools" in modules
+    assert set(SLICE6_MODULES) <= set(modules)
     for m in modules:
         importlib.import_module(m.removesuffix(".__init__"))
 
@@ -267,3 +298,65 @@ def test_scale_out_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     assert not any(tmp_path.iterdir())
     assert ShardedSequenceFitter(spec, data, (32, 32), device="cpu").n_frames == 2
     assert GridShardedFitter(spec, clips, (32, 32), device="cpu").n_local == (2, 2)
+
+
+def test_no_jax_guard_stops_an_import():
+    res = _no_jax("smilify_tpu.cli.export_gltf", "--help")
+    assert res.returncode != 0 and "no smilify_tpu here" in res.stderr
+
+
+@pytest.mark.parametrize("cli", ["export_gltf", "generate_video", "prepare_meshes", "plot_pca_data",
+                                 "read_fitter_stages", "show_latest_checkpoint", "run_inference"])
+def test_slice6_cli_help_without_jax(cli):
+    res = _no_jax(f"smilify_tpu_torch.cli.{cli}", "--help")
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("usage:") and "Not ported yet" not in res.stdout
+    if cli == "run_inference":
+        assert "--video" in res.stdout
+
+
+def test_run_inference_video_without_jax(tmp_path):
+    import cv2
+
+    from smilify_tpu_torch.core.spec import toy_model_spec
+    from smilify_tpu_torch.models.weight_port import build_model
+    from smilify_tpu_torch.tools.synthetic_data import write_model_pkl, write_replicant_sequence
+    from smilify_tpu_torch.train.config import load_config, resolve_model_spec
+    from smilify_tpu_torch.train.trainer import TrainState, save_checkpoint
+
+    spec = toy_model_spec(device="cpu")
+    pkl = write_model_pkl(str(tmp_path / "toy.pkl"), spec)
+    folder, _ = write_replicant_sequence(str(tmp_path / "seq"), spec, 3, 32, layout="unreal")
+    cfg = load_config(None, overrides={"smal_model.smal_file": pkl, "model.backbone_name": "unet_micro",
+                                       "model.input_resolution": 32})
+    model = build_model(cfg.regressor_config(resolve_model_spec(cfg, device="cpu")), img_size=32)
+    ckpt = save_checkpoint(str(tmp_path / "run"), TrainState(model.state_dict()), cfg, "final_model")
+    video = tmp_path / "out.mp4"
+    res = _no_jax("smilify_tpu_torch.cli.run_inference", "--checkpoint", ckpt, "--data-path", folder,
+                  "--video", str(video), "--device", "cpu")
+    assert res.returncode == 0, res.stderr
+    cap = cv2.VideoCapture(str(video))
+    assert int(cap.get(cv2.CAP_PROP_FRAME_COUNT)) == 3
+    cap.release()
+    assert sorted(os.listdir(tmp_path / "run" / "visualizations")) == [
+        f"frame_{i:05d}.png" for i in range(3)]
+
+
+def test_slice6_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """generate_video (rendering) and export_gltf default to the card and
+    raise without one; recommend_batch_size with no card needs hbm_gb."""
+    from smilify_tpu_torch.cli import export_gltf, generate_video
+    from smilify_tpu_torch.utils.monitoring import recommend_batch_size
+
+    (tmp_path / "frame0").mkdir()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    (tmp_path / "frame0" / "st10_ep0.pkl").write_bytes(pickle.dumps({}))
+    calls = [
+        lambda: generate_video.main(["--checkpoint-dir", str(tmp_path), "--model", "m.pkl"]),
+        lambda: export_gltf.main(["--model", "m.pkl", "--rest-pose", "--out", "x.glb"]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        recommend_batch_size("resnet50")
