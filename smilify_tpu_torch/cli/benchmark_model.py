@@ -23,10 +23,13 @@ import torch
 from smilify_tpu_torch._device import resolve_device
 
 
-def main(argv=None):
+def main(argv=None, source=None):
+    """The CLI; a caller holding its samples in memory passes them as
+    ``source`` (a ``data.hdf5_dataset.MultiViewStore``) instead of
+    ``--dataset-path``."""
     ap = argparse.ArgumentParser(description="Benchmark a trained SMIL regressor")
     ap.add_argument("--checkpoint", required=True)
-    ap.add_argument("--dataset-path", required=True)
+    ap.add_argument("--dataset-path", required=source is None)
     ap.add_argument("--output-dir", default=None)
     ap.add_argument("--batch-size", type=int, default=8)
     ap.add_argument("--max-samples", type=int, default=None)
@@ -60,13 +63,13 @@ def main(argv=None):
     res = cfg.model.input_resolution or 224
     is_mv = cfg.mode == "multi_view"
 
-    dataset = open_dataset(args.dataset_path, joint_names=spec.joint_names,
-                           image_size=res if not args.dataset_path.endswith(".h5") else None)
+    path = args.dataset_path if source is None else source
+    dataset = open_dataset(path, joint_names=spec.joint_names,
+                           image_size=res if source is None and not path.endswith(".h5") else None)
     if not is_mv and "images" in dataset[0]:
         from smilify_tpu_torch.data.hdf5_dataset import MultiViewHDF5Dataset
 
-        dataset = MultiViewHDF5Dataset(args.dataset_path, return_single_view=True,
-                                       expand_all_views=True)
+        dataset = MultiViewHDF5Dataset(path, return_single_view=True, expand_all_views=True)
     if args.split != "all":
         ratios = tuple(float(x) for x in args.split_ratios.split(","))
         if getattr(dataset, "item_sample_indices", None) is not None:

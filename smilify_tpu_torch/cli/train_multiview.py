@@ -29,7 +29,10 @@ from smilify_tpu_torch.cli.train_regressor import (
 )
 
 
-def main(argv=None):
+def main(argv=None, source=None):
+    """The CLI; a caller holding its samples in memory passes them as
+    ``source`` (a ``data.hdf5_dataset.MultiViewStore``) instead of
+    ``--data-path``."""
     args = base_parser("Train the multi-view SMIL regressor", "runs/multiview").parse_args(argv)
     cfg = load_run_config(args, "multi_view")
     dev, mesh, batch_size = setup_data_parallel(args, cfg)
@@ -46,7 +49,8 @@ def main(argv=None):
     spec = resolve_model_spec(cfg, device=dev)
     rcfg = cfg.regressor_config(spec)
     dataset = MultiViewHDF5Dataset(
-        cfg.dataset.data_path, num_views_to_use=cfg.multiview.num_views_to_use,
+        cfg.dataset.data_path if source is None else source,
+        num_views_to_use=cfg.multiview.num_views_to_use,
         view_sampling=cfg.multiview.view_sampling, seed=cfg.training.seed,
         min_views=cfg.multiview.min_views_per_sample)
     res = dataset.target_resolution

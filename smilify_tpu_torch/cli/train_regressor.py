@@ -46,10 +46,12 @@ def parse_set_overrides(pairs):
     return out
 
 
-def build_dataset(cfg, spec):
+def build_dataset(cfg, spec, source=None):
     """(dataset, kind) for ``cfg.dataset.data_path``: a replicAnt folder, a
     single- or multi-view HDF5 store (a multi-view store read one view an
-    item for a single-view config), or the weighted multi-dataset mix."""
+    item for a single-view config), or the weighted multi-dataset mix;
+    ``source`` (a ``data.hdf5_dataset.MultiViewStore``) stands in for the
+    path."""
     from smilify_tpu_torch.data.hdf5_dataset import (
         MultiViewHDF5Dataset,
         SingleViewHDF5Dataset,
@@ -62,7 +64,7 @@ def build_dataset(cfg, spec):
         from smilify_tpu_torch.data.combined import build_combined_from_config
 
         return build_combined_from_config(cfg, joint_names=spec.joint_names), "combined"
-    path = cfg.dataset.data_path
+    path = cfg.dataset.data_path if source is None else source
     kind = detect_dataset_type(path)
     if kind == "replicant_raw":
         return ReplicantDataset(path, spec.joint_names, image_size=res), kind
@@ -249,7 +251,10 @@ def set_float32_matmul(dev: torch.device) -> None:
         torch.backends.cudnn.allow_tf32 = False
 
 
-def main(argv=None):
+def main(argv=None, source=None):
+    """The CLI; a caller holding its samples in memory passes them as
+    ``source`` (a ``data.hdf5_dataset.MultiViewStore``) instead of
+    ``--data-path``."""
     args = base_parser("Train the single-view SMIL regressor", "runs/singleview").parse_args(argv)
     cfg = load_run_config(args, "single_view")
     dev, mesh, batch_size = setup_data_parallel(args, cfg)
@@ -261,7 +266,7 @@ def main(argv=None):
 
     spec = resolve_model_spec(cfg, device=dev)
     rcfg = cfg.regressor_config(spec)
-    dataset, kind = build_dataset(cfg, spec)
+    dataset, kind = build_dataset(cfg, spec, source)
     print(f"dataset: {kind}, {len(dataset)} samples; model J={spec.n_joints} B={spec.n_betas}")
     train_ds, val_ds = prepare_splits(cfg, dataset, kind, multiview=False)
 

@@ -1,7 +1,9 @@
 """HDF5 dataset format: writer + readers (single-view and multi-view; port
 of ``smilify_tpu/data/hdf5_dataset.py``, byte-compatible with its files: the
 images are JPEG through OpenCV and the files are read and written with h5py,
-both imported when used).
+both imported when used). A multi-view store can also be held in memory
+(:func:`multiview_store` → :class:`MultiViewStore`), which the multi-view
+reader takes in place of a path: the machines without h5py train on it.
 
 The on-disk schema is the reference's (so datasets interchange):
 multi-view (preprocess_sleap_multiview_dataset.py:1441-1720):
@@ -33,6 +35,7 @@ max_views with boolean masks so batches have static shapes.
 from __future__ import annotations
 
 import json
+from types import SimpleNamespace
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -60,8 +63,7 @@ def decode_jpeg(buf: np.ndarray) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
-def write_multiview_hdf5(
-    path: str,
+def multiview_store(
     samples: List[Dict],
     max_views: int,
     target_resolution: int,
@@ -71,8 +73,10 @@ def write_multiview_hdf5(
     dataset_type: str = "sleap_multiview",
     jpeg_quality: int = 90,
     extra_metadata: Optional[Dict] = None,
-):
-    """Write multi-view samples in the reference schema.
+) -> "MultiViewStore":
+    """Multi-view samples in the reference schema, in memory: what
+    :func:`write_multiview_hdf5` writes, JPEG images included, as a
+    :class:`MultiViewStore`.
 
     Each sample dict: images (list of (H,W,3) uint8 per valid view),
     camera_indices (list int), keypoints_2d (V', K, 2), keypoint_visibility
@@ -81,96 +85,152 @@ def write_multiview_hdf5(
     (K,3) + has_3d_data, optional parameters global_rot/joint_rot/betas/trans,
     session_name, frame_idx.
     """
-    import h5py
-
     N = len(samples)
     K = samples[0]["keypoints_2d"].shape[1]
 
+    jpegs = [np.empty((N,), object) for _ in range(max_views)]   # a view's JPEG buffers
+    for col in jpegs:
+        for i in range(N):
+            col[i] = np.zeros((0,), np.uint8)                     # an absent view: empty
+    view_mask = np.zeros((N, max_views), dtype=bool)
+    kp2d = np.zeros((N, max_views, K, 2), np.float32)
+    kpv = np.zeros((N, max_views, K), np.float32)
+    cam_idx = np.full((N, max_views), -1, np.int32)
+    Kmat = np.zeros((N, max_views, 3, 3), np.float32)
+    Rmat = np.zeros((N, max_views, 3, 3), np.float32)
+    tvec = np.zeros((N, max_views, 3), np.float32)
+    sizes = np.zeros((N, max_views, 2), np.int32)
+    kp3d = np.zeros((N, K, 3), np.float32)
+    has3d = np.zeros((N,), bool)
+    g_rot = np.zeros((N, 3), np.float32)
+    j_rot = np.zeros((N, n_pose, 3), np.float32)
+    betas = np.zeros((N, n_betas), np.float32)
+    trans = np.zeros((N, 3), np.float32)
+    has_betas = np.zeros((N,), bool)
+    sessions, fidx, nviews, cam_names = [], [], [], []
+
+    for i, s in enumerate(samples):
+        nv = len(s["images"])
+        view_mask[i, :nv] = True
+        for v in range(nv):
+            jpegs[v][i] = encode_jpeg(s["images"][v], jpeg_quality)
+        kp2d[i, :nv] = s["keypoints_2d"]
+        kpv[i, :nv] = s["keypoint_visibility"]
+        cam_idx[i, :nv] = s["camera_indices"]
+        Kmat[i, :nv] = s["camera_intrinsics"]
+        Rmat[i, :nv] = s["camera_extrinsics_R"]
+        tvec[i, :nv] = s["camera_extrinsics_t"]
+        sizes[i, :nv] = s["image_sizes"]
+        if s.get("keypoints_3d") is not None:
+            kp3d[i] = s["keypoints_3d"]
+            has3d[i] = True
+        for name, arr in (("global_rot", g_rot), ("joint_rot", j_rot), ("betas", betas), ("trans", trans)):
+            if s.get(name) is not None:
+                arr[i] = s[name]
+                if name == "betas":
+                    has_betas[i] = True
+        sessions.append(s.get("session_name", "session").encode())
+        fidx.append(int(s.get("frame_idx", i)))
+        nviews.append(nv)
+        cam_names.append(",".join(str(c) for c in s.get("camera_names", s["camera_indices"])).encode())
+
+    arrays = {f"multiview_images/image_jpeg_view_{v}": jpegs[v] for v in range(max_views)}
+    arrays.update({
+        "multiview_images/view_mask": view_mask,
+        "multiview_keypoints/keypoints_2d": kp2d,
+        "multiview_keypoints/keypoint_visibility": kpv,
+        "multiview_keypoints/camera_indices": cam_idx,
+        "multiview_keypoints/camera_intrinsics": Kmat,
+        "multiview_keypoints/camera_extrinsics_R": Rmat,
+        "multiview_keypoints/camera_extrinsics_t": tvec,
+        "multiview_keypoints/image_sizes": sizes,
+        "multiview_keypoints/keypoints_3d": kp3d,
+        "auxiliary/has_3d_data": has3d,
+        "parameters/global_rot": g_rot,
+        "parameters/joint_rot": j_rot,
+        "parameters/betas": betas,
+        "parameters/trans": trans,
+        "auxiliary/session_name": np.asarray(sessions),
+        "auxiliary/frame_idx": np.asarray(fidx),
+        "auxiliary/num_views": np.asarray(nviews),
+        "auxiliary/has_ground_truth_betas": has_betas,
+        "auxiliary/camera_names": np.asarray(cam_names),
+    })
+    attrs = {
+        "num_samples": N,
+        "max_views": max_views,
+        "n_joints": K,
+        "target_resolution": target_resolution,
+        "dataset_type": dataset_type,
+        "is_multiview": True,
+        "n_pose": n_pose,
+        "n_betas": n_betas,
+        "canonical_camera_order": json.dumps(canonical_camera_order),
+        "has_camera_parameters": True,
+        "has_3d_keypoints": bool(has3d.any()),
+        **(extra_metadata or {}),
+    }
+    return MultiViewStore(arrays, attrs)
+
+
+def write_multiview_hdf5(path: str, samples: List[Dict], *args, **kwargs):
+    """Write multi-view samples in the reference schema to the HDF5 file
+    ``path`` (needs h5py); the arguments are :func:`multiview_store`'s."""
+    import h5py
+
+    store = multiview_store(samples, *args, **kwargs)
     with h5py.File(path, "w") as f:
-        gi = f.create_group("multiview_images")
-        gk = f.create_group("multiview_keypoints")
-        gp = f.create_group("parameters")
-        ga = f.create_group("auxiliary")
-        gm = f.create_group("metadata")
-
+        for group in ("multiview_images", "multiview_keypoints", "parameters", "auxiliary"):
+            f.create_group(group)
         dt_vlen = h5py.special_dtype(vlen=np.uint8)
-        img_ds = [gi.create_dataset(f"image_jpeg_view_{v}", shape=(N,), dtype=dt_vlen) for v in range(max_views)]
-
-        view_mask = np.zeros((N, max_views), dtype=bool)
-        kp2d = np.zeros((N, max_views, K, 2), np.float32)
-        kpv = np.zeros((N, max_views, K), np.float32)
-        cam_idx = np.full((N, max_views), -1, np.int32)
-        Kmat = np.zeros((N, max_views, 3, 3), np.float32)
-        Rmat = np.zeros((N, max_views, 3, 3), np.float32)
-        tvec = np.zeros((N, max_views, 3), np.float32)
-        sizes = np.zeros((N, max_views, 2), np.int32)
-        kp3d = np.zeros((N, K, 3), np.float32)
-        has3d = np.zeros((N,), bool)
-        g_rot = np.zeros((N, 3), np.float32)
-        j_rot = np.zeros((N, n_pose, 3), np.float32)
-        betas = np.zeros((N, n_betas), np.float32)
-        trans = np.zeros((N, 3), np.float32)
-        has_betas = np.zeros((N,), bool)
-        sessions, fidx, nviews, cam_names = [], [], [], []
-
-        for i, s in enumerate(samples):
-            nv = len(s["images"])
-            view_mask[i, :nv] = True
-            for v in range(nv):
-                img_ds[v][i] = encode_jpeg(s["images"][v], jpeg_quality)
-            kp2d[i, :nv] = s["keypoints_2d"]
-            kpv[i, :nv] = s["keypoint_visibility"]
-            cam_idx[i, :nv] = s["camera_indices"]
-            Kmat[i, :nv] = s["camera_intrinsics"]
-            Rmat[i, :nv] = s["camera_extrinsics_R"]
-            tvec[i, :nv] = s["camera_extrinsics_t"]
-            sizes[i, :nv] = s["image_sizes"]
-            if s.get("keypoints_3d") is not None:
-                kp3d[i] = s["keypoints_3d"]
-                has3d[i] = True
-            for name, arr in (("global_rot", g_rot), ("joint_rot", j_rot), ("betas", betas), ("trans", trans)):
-                if s.get(name) is not None:
-                    arr[i] = s[name]
-                    if name == "betas":
-                        has_betas[i] = True
-            sessions.append(s.get("session_name", "session").encode())
-            fidx.append(int(s.get("frame_idx", i)))
-            nviews.append(nv)
-            cam_names.append(",".join(str(c) for c in s.get("camera_names", s["camera_indices"])).encode())
-
-        gi.create_dataset("view_mask", data=view_mask)
-        gk.create_dataset("keypoints_2d", data=kp2d)
-        gk.create_dataset("keypoint_visibility", data=kpv)
-        gk.create_dataset("camera_indices", data=cam_idx)
-        gk.create_dataset("camera_intrinsics", data=Kmat)
-        gk.create_dataset("camera_extrinsics_R", data=Rmat)
-        gk.create_dataset("camera_extrinsics_t", data=tvec)
-        gk.create_dataset("image_sizes", data=sizes)
-        gk.create_dataset("keypoints_3d", data=kp3d)
-        ga.create_dataset("has_3d_data", data=has3d)
-        gp.create_dataset("global_rot", data=g_rot)
-        gp.create_dataset("joint_rot", data=j_rot)
-        gp.create_dataset("betas", data=betas)
-        gp.create_dataset("trans", data=trans)
-        ga.create_dataset("session_name", data=sessions)
-        ga.create_dataset("frame_idx", data=np.asarray(fidx))
-        ga.create_dataset("num_views", data=np.asarray(nviews))
-        ga.create_dataset("has_ground_truth_betas", data=has_betas)
-        ga.create_dataset("camera_names", data=cam_names)
-
-        gm.attrs["num_samples"] = N
-        gm.attrs["max_views"] = max_views
-        gm.attrs["n_joints"] = K
-        gm.attrs["target_resolution"] = target_resolution
-        gm.attrs["dataset_type"] = dataset_type
-        gm.attrs["is_multiview"] = True
-        gm.attrs["n_pose"] = n_pose
-        gm.attrs["n_betas"] = n_betas
-        gm.attrs["canonical_camera_order"] = json.dumps(canonical_camera_order)
-        gm.attrs["has_camera_parameters"] = True
-        gm.attrs["has_3d_keypoints"] = bool(has3d.any())
-        for k, v in (extra_metadata or {}).items():
+        for key, arr in store.arrays.items():
+            if arr.dtype == object:
+                ds = f.create_dataset(key, shape=arr.shape, dtype=dt_vlen)
+                for i, buf in enumerate(arr):
+                    ds[i] = buf
+            else:
+                f.create_dataset(key, data=arr)
+        gm = f.create_group("metadata")
+        for k, v in store.attrs.items():
             gm.attrs[k] = v
+
+
+class MultiViewStore:
+    """The multi-view schema held in memory (:func:`multiview_store`), read
+    by :class:`MultiViewHDF5Dataset` and :func:`detect_dataset_type` as they
+    read an open HDF5 file: ``store["group/name"][i]`` is a numpy array (the
+    JPEG columns: 1-D uint8 buffers), ``store["metadata"].attrs`` the
+    metadata. For the machines without h5py (the card's)."""
+
+    def __init__(self, arrays: Dict[str, np.ndarray], attrs: Dict):
+        self.arrays = arrays
+        self.attrs = attrs
+
+    def __getitem__(self, key: str):
+        if key == "metadata":
+            return SimpleNamespace(attrs=self.attrs)
+        return self.arrays[key]
+
+    def __contains__(self, key: str) -> bool:
+        return key == "metadata" or key in self.arrays
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def close(self):
+        pass
+
+
+def _open(source):
+    """An HDF5 file at the path ``source`` (h5py), or the in-memory store."""
+    if isinstance(source, MultiViewStore):
+        return source
+    import h5py
+
+    return h5py.File(source, "r")
 
 
 # ---------------------------------------------------------------------------
@@ -183,11 +243,9 @@ def detect_dataset_type(path: str) -> str:
     smil_datasets.py:147-228)."""
     import os
 
-    if os.path.isdir(path):
+    if not isinstance(path, MultiViewStore) and os.path.isdir(path):
         return "replicant_raw"
-    import h5py
-
-    with h5py.File(path, "r") as f:
+    with _open(path) as f:
         if "metadata" in f:
             attrs = dict(f["metadata"].attrs)
             if attrs.get("is_multiview", False):
@@ -198,7 +256,8 @@ def detect_dataset_type(path: str) -> str:
 
 class MultiViewHDF5Dataset:
     """Reader for the multi-view schema with lazy per-worker file handles
-    (reference SLEAPMultiViewDataset:109,254).
+    (reference SLEAPMultiViewDataset:109,254); ``path`` is an HDF5 file or a
+    :class:`MultiViewStore`.
 
     ``__getitem__`` returns a dict of numpy arrays already padded to
     max_views with ``view_mask``; ``num_views_to_use`` subsamples views
@@ -218,8 +277,6 @@ class MultiViewHDF5Dataset:
         expand_all_views: bool = False,
         min_views: int = 1,
     ):
-        import h5py
-
         self.path = path
         self._file = None
         self.num_views_to_use = num_views_to_use
@@ -230,7 +287,7 @@ class MultiViewHDF5Dataset:
         self.expand_all_views = expand_all_views
         self.min_views = min_views
         self.rng = np.random.default_rng(seed)
-        with h5py.File(path, "r") as f:
+        with _open(path) as f:
             m = dict(f["metadata"].attrs)
             self.num_samples = int(m["num_samples"])
             self.max_views = int(m["max_views"])
@@ -252,7 +309,7 @@ class MultiViewHDF5Dataset:
         # the index (reference multiview.min_views_per_sample)
         self._sample_index = None
         if min_views > 1:
-            with h5py.File(path, "r") as f:
+            with _open(path) as f:
                 counts = f["multiview_images/view_mask"][:].sum(axis=1)
             self._sample_index = np.nonzero(counts >= min_views)[0]
             self.num_samples = len(self._sample_index)
@@ -262,7 +319,7 @@ class MultiViewHDF5Dataset:
             # sleap_multiview_dataset.py:298): every valid view is an item;
             # item_sample_indices keeps splits at the sample level so no view
             # leaks across train/val/test
-            with h5py.File(path, "r") as f:
+            with _open(path) as f:
                 vm = f["multiview_images/view_mask"][:]
             keep = (self._sample_index if self._sample_index is not None
                     else range(vm.shape[0]))
@@ -277,10 +334,8 @@ class MultiViewHDF5Dataset:
 
     @property
     def file(self):
-        import h5py
-
         if self._file is None:
-            self._file = h5py.File(self.path, "r")
+            self._file = _open(self.path)
         return self._file
 
     def __getstate__(self):

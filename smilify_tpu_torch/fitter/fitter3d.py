@@ -40,6 +40,7 @@ import torch
 from smilify_tpu_torch._device import resolve_device
 from smilify_tpu_torch.core.lbs import smil_forward
 from smilify_tpu_torch.core.spec import ModelSpec
+from smilify_tpu_torch.ops.gather import RowIndex
 from smilify_tpu_torch.ops.mesh_ops import (
     chamfer_distance,
     edges_from_faces,
@@ -176,23 +177,29 @@ def fitter3d_forward(spec: ModelSpec, params: Fit3DParams, propagate_scaling: bo
 
 
 class MeshTopology(NamedTuple):
-    """Host-precomputed SMIL template topology for the regularizers."""
+    """Host-precomputed SMIL template topology for the regularizers and the
+    template's sampling: each index with its inverse table (``RowIndex``),
+    so that every fixed-topology gather's backward is a gather and a sum in
+    a fixed order."""
 
-    edges: torch.Tensor
-    nbr_table: torch.Tensor
+    edges: RowIndex       # (E, 2)
+    nbr_table: RowIndex   # (V, max_degree), padding left out of the inverse
     nbr_degree: torch.Tensor
-    adjacency: torch.Tensor
+    adjacency: RowIndex   # (P, 4)
+    faces: RowIndex       # (F, 3)
 
 
 def template_topology(spec: ModelSpec) -> MeshTopology:
     faces = spec.faces.cpu().numpy()
-    table, deg = laplacian_neighbors_from_faces(faces, spec.n_verts)
-
-    def dev(a):
-        return torch.as_tensor(np.asarray(a), dtype=torch.int64).to(spec.device)
-
-    return MeshTopology(edges=dev(edges_from_faces(faces)), nbr_table=dev(table),
-                        nbr_degree=dev(deg), adjacency=dev(face_adjacency_from_faces(faces)))
+    V, dev = spec.n_verts, spec.device
+    table, deg = laplacian_neighbors_from_faces(faces, V)
+    padding = np.arange(table.shape[1])[None, :] >= deg[:, None]
+    return MeshTopology(
+        edges=RowIndex.build(edges_from_faces(faces), V, device=dev),
+        nbr_table=RowIndex.build(table, V, valid=~padding, device=dev),
+        nbr_degree=torch.as_tensor(deg, dtype=torch.int64).to(dev),
+        adjacency=RowIndex.build(face_adjacency_from_faces(faces), V, device=dev),
+        faces=RowIndex.build(faces, V, device=dev))
 
 
 def registration_uniforms(batch: int, num_samples: int,
@@ -232,7 +239,7 @@ def registration_losses(
         if uniforms is None:
             uniforms = registration_uniforms(B, num_samples, generator, verts.device)
         r_src, u_src, r_tgt, u_tgt = uniforms
-        src_pts = points_from_uniforms(verts, spec.faces, r_src, u_src)
+        src_pts = points_from_uniforms(verts, topo.faces, r_src, u_src)
         # faces_mask zeroes padded faces' sampling weight explicitly —
         # independent of the padding also being (0,0,0) degenerate
         tgt_pts = points_from_uniforms(targets.verts, targets.faces, r_tgt, u_tgt,

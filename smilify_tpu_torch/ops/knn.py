@@ -20,6 +20,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from smilify_tpu_torch.ops.gather import take_rows
+
 # one-shot distance-matrix budget (elements) per cloud pair; ~64 MB f32
 _ONESHOT_ELEMS = 16 * 1024 * 1024
 
@@ -40,10 +42,9 @@ def _neighbor_indices(x, y_t, y_sq, K):
 
 
 def gather_neighbors(y, idx):
-    """y (..., M, D), idx (..., N, K) → (..., N, K, D)."""
-    flat = idx.reshape(*idx.shape[:-2], -1)
-    out = torch.gather(y, -2, flat[..., None].expand(*flat.shape, y.shape[-1]))
-    return out.reshape(*idx.shape, y.shape[-1])
+    """y (..., M, D), idx (..., N, K) → (..., N, K, D); the backward adds in
+    an order fixed by ``idx`` (:func:`~smilify_tpu_torch.ops.gather.take_rows`)."""
+    return take_rows(y, idx.reshape(*idx.shape[:-2], -1)).reshape(*idx.shape, y.shape[-1])
 
 
 def knn_points(

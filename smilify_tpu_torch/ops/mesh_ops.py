@@ -7,7 +7,11 @@ plain PyTorch.
 
 Topology-derived index arrays (edges, adjacency) are computed on the host
 once per mesh topology by the ``*_from_faces`` helpers (numpy, copied from
-the JAX module) and passed in. Sampling is split in two: the draws
+the JAX module) and passed in, as int tensors or as
+:class:`~smilify_tpu_torch.ops.gather.RowIndex` tables with their inverse.
+Every gather on a loss's backward path goes through ``ops/gather.py``, whose
+backward adds in an order fixed by the indices: a registration is the same
+from run to run on the card. Sampling is split in two: the draws
 (:func:`sample_uniforms`, from a ``torch.Generator``) and the deterministic
 :func:`points_from_uniforms`, so that a caller can feed it any uniforms.
 """
@@ -19,6 +23,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from smilify_tpu_torch.ops.gather import RowIndex, gather_rows, take_rows
 from smilify_tpu_torch.ops.knn import gather_neighbors, knn_points
 
 
@@ -100,15 +105,14 @@ def chamfer_distance(x, y, x_mask=None, y_mask=None) -> torch.Tensor:
 
 def mesh_edge_loss(verts, edges, target_length: float = 0.0) -> torch.Tensor:
     """Mean squared deviation of edge lengths from target (pytorch3d semantics)."""
-    v0 = verts[..., edges[:, 0], :]
-    v1 = verts[..., edges[:, 1], :]
-    lengths = torch.linalg.norm(v0 - v1, dim=-1)
+    ends = gather_rows(verts, edges)  # (..., E, 2, 3)
+    lengths = torch.linalg.norm(ends[..., 0, :] - ends[..., 1, :], dim=-1)
     return torch.mean((lengths - target_length) ** 2)
 
 
 def mesh_laplacian_smoothing(verts, nbr_table, degree) -> torch.Tensor:
     """Uniform Laplacian smoothing: mean ‖L·v‖ (pytorch3d method='uniform')."""
-    nbrs = verts[..., nbr_table, :]  # (..., V, max_deg, 3)
+    nbrs = gather_rows(verts, nbr_table)  # (..., V, max_deg, 3)
     md = nbr_table.shape[-1]
     deg = degree.to(verts.dtype)
     mask = (torch.arange(md, device=verts.device)[None, :] < degree[:, None]).to(verts.dtype)
@@ -126,7 +130,7 @@ def mesh_normal_consistency(verts, adjacency) -> torch.Tensor:
     """
     if adjacency.shape[0] == 0:
         return torch.zeros((), dtype=verts.dtype, device=verts.device)
-    s0, s1, oa, ob = (verts[..., adjacency[:, k], :] for k in range(4))
+    s0, s1, oa, ob = gather_rows(verts, adjacency).unbind(-2)
     e = s1 - s0
     na = torch.linalg.cross(e, oa - s0)
     nb = torch.linalg.cross(ob - s0, e)  # opposite winding so aligned normals agree
@@ -157,25 +161,25 @@ def sample_uniforms(num_samples: int, generator: Optional[torch.Generator] = Non
     return r, u
 
 
-def _take(x, idx):
-    """x (..., N, D), idx (..., S) → x at idx along N, (..., S, D)."""
-    return torch.take_along_dim(x, idx[..., None], dim=-2)
-
-
 def points_from_uniforms(verts, faces, r, u, return_normals: bool = False,
                          face_mask: Optional[torch.Tensor] = None):
     """Area-weighted surface points of the mesh (``verts`` (V, 3), ``faces``
     (F, 3)) at the uniforms ``r`` (S,) and ``u`` (S, 2); or of a batch of
     meshes: ``verts`` (B, V, 3), ``faces`` (F, 3) shared or (B, F, 3), ``r``
-    (B, S), ``u`` (B, S, 2), ``face_mask`` (B, F).
+    (B, S), ``u`` (B, S, 2), ``face_mask`` (B, F). Shared faces may come as
+    a :class:`~smilify_tpu_torch.ops.gather.RowIndex` of the (F, 3) faces.
 
     The face is chosen by inverse CDF (cumsum of the areas + searchsorted):
     face i owns the half-open interval [cdf[i-1], cdf[i]), so zero-area
     (padded, degenerate or ``face_mask``-ed) faces are never chosen.
     Differentiable wrt ``verts`` (the face choice is detached; barycentric
     interpolation carries gradients)."""
-    faces = faces.long().expand(*verts.shape[:-2], *faces.shape[-2:])
-    v0, v1, v2 = (_take(verts, faces[..., k]) for k in range(3))
+    if isinstance(faces, RowIndex):
+        corners = gather_rows(verts, faces)                       # (..., F, 3, 3)
+    else:
+        faces = faces.long().expand(*verts.shape[:-2], *faces.shape[-2:])
+        corners = take_rows(verts, faces.flatten(-2)).unflatten(-2, faces.shape[-2:])
+    v0, v1, v2 = corners.unbind(-2)
     cross = torch.linalg.cross(v1 - v0, v2 - v0)
     areas = 0.5 * torch.linalg.norm(cross, dim=-1)
     if face_mask is not None:
@@ -189,11 +193,11 @@ def points_from_uniforms(verts, faces, r, u, return_normals: bool = False,
     w0 = 1.0 - su
     w1 = su * (1.0 - u[..., 1:2])
     w2 = su * u[..., 1:2]
-    pts = w0 * _take(v0, fidx) + w1 * _take(v1, fidx) + w2 * _take(v2, fidx)
+    pts = w0 * take_rows(v0, fidx) + w1 * take_rows(v1, fidx) + w2 * take_rows(v2, fidx)
     if not return_normals:
         return pts
     n = cross / torch.clamp_min(torch.linalg.norm(cross, dim=-1, keepdim=True), 1e-12)
-    return SampledPoints(points=pts, normals=_take(n, fidx), face_idx=fidx)
+    return SampledPoints(points=pts, normals=take_rows(n, fidx), face_idx=fidx)
 
 
 def sample_points_from_meshes(verts, faces, num_samples: int,

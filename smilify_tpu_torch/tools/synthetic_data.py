@@ -7,10 +7,10 @@ and registration CLIs take are not in the repository; the CPU tests and
   * :func:`write_model_pkl` — a spec's arrays as an L0 model ``.pkl``
     (``utils/authoring.py::export_model_pkl``);
   * :func:`write_replicant_sequence` — a replicAnt COCO folder: ``labels.json``
-    with the spec's joints as keypoints, PNG frames (the hard Phong render on
-    white) and ``SMIL/*_ID.png`` masks, from posed copies of the spec; or
-    the same frames in replicAnt's per-frame (Unreal) layout, which the
-    regressors' CLIs read;
+    with the spec's joints as keypoints, PNG or JPEG frames (the hard Phong
+    render on white) and ``SMIL/*_ID.png`` masks, from posed copies of the
+    spec; or the same frames in replicAnt's per-frame (Unreal) layout, which
+    the regressors' CLIs read;
   * :func:`posed_target_meshes` — posed and scaled copies of a spec, the
     registration's target scans.
 """
@@ -54,23 +54,45 @@ def write_model_pkl(path: str, spec: ModelSpec) -> str:
 
 
 @torch.no_grad()
+def write_frame(path: str, rgb: np.ndarray, image_format: str) -> None:
+    """A uint8 RGB frame as ``"png"`` (``image_io.write_png``) or as
+    ``"jpeg"`` (``cv2.imwrite`` at OpenCV's default quality, 95)."""
+    if image_format == "png":
+        from smilify_tpu_torch.utils.image_io import write_png
+
+        write_png(path, rgb)
+    elif image_format == "jpeg":
+        import cv2
+
+        if not cv2.imwrite(path, cv2.cvtColor(rgb, cv2.COLOR_RGB2BGR)):
+            raise OSError(f"cv2.imwrite could not write {path}")
+    else:
+        raise ValueError(f"image_format must be 'png' or 'jpeg', got {image_format!r}")
+
+
+@torch.no_grad()
 def write_replicant_sequence(root: str, spec: ModelSpec, n_frames: int, size: int,
-                             seed: int = 42, layout: str = "coco") -> Tuple[str, List[str]]:
+                             seed: int = 42, layout: str = "coco",
+                             image_format: str = "png") -> Tuple[str, List[str]]:
     """``n_frames`` frames of ``spec`` posed by ``synthetic_poses(seed)`` at
     ``size``², seen by the default camera, in one of two replicAnt layouts:
 
     * ``"coco"`` (what the fitter CLIs read): ``<root>/SMIL_COCO``
-      (``labels.json``, ``data/SMIL_<i>_synth.png``) with masks in
-      ``<root>/SMIL``; returns (the COCO folder, the frames' file names);
+      (``labels.json``, ``data/SMIL_<i>_synth.png``, or ``.jpg`` with
+      ``image_format="jpeg"``) with masks in ``<root>/SMIL``; returns (the
+      COCO folder, the frames' file names);
     * ``"unreal"`` (what ``data.replicant.ReplicantDataset`` reads, and so
       the regressors' CLIs): ``<root>/SMIL_synth/SMIL_synth_<i>.json`` with
-      the frame (PNG data under replicAnt's ``.JPG`` name), its ``_ID.png``
-      mask and the folder's ``_BatchData_SMIL_synth.json``; every joint's
-      local rotation is the identity, its 3D position the posed joint in
-      Unreal's mirrored centimetres; returns (that folder, the JSON names).
+      the frame under replicAnt's ``.JPG`` name (PNG data, or JPEG data with
+      ``image_format="jpeg"``), its ``_ID.png`` mask and the folder's
+      ``_BatchData_SMIL_synth.json``; every joint's local rotation is the
+      identity, its 3D position the posed joint in Unreal's mirrored
+      centimetres; returns (that folder, the JSON names).
+
+    Frames are written by :func:`write_frame`; masks are always PNG.
     """
     if layout == "unreal":
-        return _write_unreal_sequence(root, spec, n_frames, size, seed)
+        return _write_unreal_sequence(root, spec, n_frames, size, seed, image_format)
     from smilify_tpu_torch.core.lbs import smil_forward
     from smilify_tpu_torch.fitter.fitter import synthetic_poses
     from smilify_tpu_torch.render.cameras import default_camera
@@ -92,9 +114,9 @@ def write_replicant_sequence(root: str, spec: ModelSpec, n_frames: int, size: in
         ndc = torch.cat([cam.view_to_ndc(pv)[:, :2], pv[:, 2:3]], dim=1)
         rgb = render_phong(verts[i], pv, ndc, spec.faces, (size, size))
         sil = soft_silhouette(ndc, spec.faces, (size, size), znear=cam.znear) > 0.5
-        name = f"SMIL_{i:02d}_synth.png"
-        write_png(os.path.join(coco, "data", name),
-                  (rgb * 255.0).round().to(torch.uint8).cpu().numpy())
+        name = f"SMIL_{i:02d}_synth." + ("jpg" if image_format == "jpeg" else "png")
+        write_frame(os.path.join(coco, "data", name),
+                    (rgb * 255.0).round().to(torch.uint8).cpu().numpy(), image_format)
         mask = np.repeat((sil.cpu().numpy() * 255).astype(np.uint8)[..., None], 3, axis=-1)
         write_png(os.path.join(root, "SMIL", f"SMIL_{i:02d}_ID.png"), mask)
         yx = cam.project_points_yx(joints[i], (size, size)).cpu().numpy()
@@ -131,7 +153,7 @@ def posed_target_meshes(spec: ModelSpec, n: int, seed: int = 0) -> List[np.ndarr
 
 @torch.no_grad()
 def _write_unreal_sequence(root: str, spec: ModelSpec, n_frames: int, size: int,
-                           seed: int) -> Tuple[str, List[str]]:
+                           seed: int, image_format: str) -> Tuple[str, List[str]]:
     from smilify_tpu_torch.core.lbs import smil_forward
     from smilify_tpu_torch.fitter.fitter import synthetic_poses
     from smilify_tpu_torch.render.cameras import default_camera
@@ -173,7 +195,8 @@ def _write_unreal_sequence(root: str, spec: ModelSpec, n_frames: int, size: int,
         stem = os.path.join(folder, f"{name}_{i:02d}")
         with open(stem + ".json", "w") as f:
             json.dump(frame, f)
-        write_png(stem + ".JPG", (rgb * 255.0).round().to(torch.uint8).cpu().numpy())
+        write_frame(stem + ".JPG", (rgb * 255.0).round().to(torch.uint8).cpu().numpy(),
+                    image_format)
         mask = (sil.cpu().numpy() * 255).astype(np.uint8)
         write_png(stem + "_ID.png", np.repeat(mask[..., None], 3, axis=-1))
         names.append(os.path.basename(stem) + ".json")

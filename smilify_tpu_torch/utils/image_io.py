@@ -1,14 +1,15 @@
-"""PNG files and image resizing without imageio or OpenCV.
+"""PNG files and image resizing without imageio, JPEG through OpenCV.
 
-The card's machine has neither library, so the fitter CLIs read and write
-their images through this module:
+The card's machine has OpenCV but not imageio, so the fitter CLIs and the
+data loaders read and write their images through this module:
 
   * :func:`read_png` / :func:`write_png` — 8-bit PNG in pure ``zlib`` +
     ``struct`` + numpy: gray, gray+alpha, RGB, RGBA and palette images,
     non-interlaced; every filter type on read, filter 0 on write;
-  * :func:`read_image` — PNG by itself, any other format through imageio,
-    imported when such a file is read (an ``ImportError`` that names
-    imageio where it is absent: no JPEG frames on the card);
+  * :func:`read_image` — the route chosen by the file's signature: PNG by
+    :func:`read_png`, JPEG by :func:`read_jpeg` (OpenCV, imported when a
+    JPEG is read), any other format through imageio (an ``ImportError``
+    that names imageio where it is absent);
   * :func:`resize` — ``cv2.resize`` with ``INTER_NEAREST`` (source index
     ⌊dst·in/out⌋, in float64 as cv2 computes it) and ``INTER_LINEAR``
     (half-pixel centres, no antialias, through
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+JPEG_SIGNATURE = b"\xff\xd8\xff"
 # colour type → samples a pixel (palette: one index)
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 
@@ -145,18 +147,33 @@ def write_png(path, img: np.ndarray) -> None:
         f.write(_chunk(b"IEND", b""))
 
 
+def read_jpeg(path) -> np.ndarray:
+    """A JPEG file as uint8 (H, W) or (H, W, 3) RGB, decoded by OpenCV as
+    stored: ``IMREAD_UNCHANGED`` applies no EXIF orientation, as imageio
+    (the JAX package's reader) applies none."""
+    import cv2
+
+    img = cv2.imread(str(path), cv2.IMREAD_UNCHANGED)
+    if img is None:
+        raise ValueError(f"{path}: OpenCV could not decode this JPEG")
+    return cv2.cvtColor(img, cv2.COLOR_BGR2RGB) if img.ndim == 3 and img.shape[-1] == 3 else img
+
+
 def read_image(path) -> np.ndarray:
-    """An image file as a numpy array: PNG by :func:`read_png`, any other
-    format by imageio (which the card's machine lacks)."""
+    """An image file as a numpy array, by its signature: PNG by
+    :func:`read_png`, JPEG by :func:`read_jpeg`, any other format by
+    imageio (which the card's machine lacks)."""
     with open(path, "rb") as f:
-        is_png = f.read(len(PNG_SIGNATURE)) == PNG_SIGNATURE
-    if is_png:
+        head = f.read(len(PNG_SIGNATURE))
+    if head == PNG_SIGNATURE:
         return read_png(path)
+    if head.startswith(JPEG_SIGNATURE):
+        return read_jpeg(path)
     try:
         import imageio.v2 as imageio
     except ImportError as e:
-        raise ImportError(f"{path} is not a PNG; reading it needs imageio, which is not "
-                          f"installed (convert the frames to PNG)") from e
+        raise ImportError(f"{path} is neither PNG nor JPEG; reading it needs imageio, which "
+                          f"is not installed (convert the frames to PNG or JPEG)") from e
     return np.asarray(imageio.imread(path))
 
 

@@ -479,3 +479,85 @@ def test_bench_all_runs_config2_only_given_a_target(specs, tmp_path):
     with pytest.raises(SystemExit):
         bench_all.main(["--only", "config2", "--device", "cpu", "--out", str(tmp_path / "b.json")])
     assert not (tmp_path / "b.json").exists()
+
+
+# ---------------------------------------------------------------------------
+# ops/gather.py: the gathers whose backward adds in an order fixed by the
+# indices (registration reproducible on the card)
+# ---------------------------------------------------------------------------
+
+
+def _topology_indices(spec):
+    """(name, index, valid) of every fixed-topology gather of the template."""
+    faces = spec.faces.numpy()
+    table, deg = tmo.laplacian_neighbors_from_faces(faces, spec.n_verts)
+    return [("edges", tmo.edges_from_faces(faces), None),
+            ("nbr_table", table, np.arange(table.shape[1])[None, :] < deg[:, None]),
+            ("adjacency", tmo.face_adjacency_from_faces(faces), None),
+            ("faces", faces, None)]
+
+
+@pytest.mark.parametrize("which", range(4))
+def test_inverse_tables_equal_a_numpy_construction(specs, which):
+    from smilify_tpu_torch.ops.gather import inverse_table
+
+    spec = specs[1]
+    name, index, valid = _topology_indices(spec)[which]
+    got = inverse_table(index, spec.n_verts, valid)
+    flat = np.asarray(index).reshape(-1)
+    ok = np.ones(flat.size, bool) if valid is None else np.asarray(valid).reshape(-1)
+    lists = [[p for p in range(flat.size) if ok[p] and flat[p] == r] for r in range(spec.n_verts)]
+    want = np.full((spec.n_verts, max(map(len, lists))), flat.size, np.int64)
+    for r, ps in enumerate(lists):
+        want[r, :len(ps)] = ps
+    np.testing.assert_array_equal(got, want, err_msg=name)
+    table = getattr(T3.template_topology(spec), name)
+    np.testing.assert_array_equal(table.index.numpy(), index, err_msg=name)
+    np.testing.assert_array_equal(table.inverse.numpy(), want, err_msg=name)
+
+
+def _rel(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("which", range(4))
+@pytest.mark.parametrize("route", ["table", "tensor"])
+@pytest.mark.parametrize("batch", [(), (3,)])
+def test_gather_rows_forward_bitwise_backward_within_1e6(specs, which, route, batch):
+    from smilify_tpu_torch.ops.gather import RowIndex, gather_rows
+
+    spec = specs[1]
+    name, index, valid = _topology_indices(spec)[which]
+    idx = torch.from_numpy(np.asarray(index, np.int64))
+    table = RowIndex.build(index, spec.n_verts, valid) if route == "table" else idx
+    rng = np.random.RandomState(which)
+    x = _t(rng.randn(*batch, spec.n_verts, 3).astype(np.float32))
+    up = _t(rng.randn(*batch, *idx.shape, 3).astype(np.float32))
+    if valid is not None:           # a padded position's gradient is zero by construction
+        up = up * _t(valid.astype(np.float32))[..., None]
+    a, b = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    got, want = gather_rows(a, table), b[..., idx, :]
+    assert torch.equal(got, want) and torch.equal(got, b.index_select(-2, idx.reshape(-1))
+                                                  .view(*batch, *idx.shape, 3))
+    (got * up).sum().backward()
+    (want * up).sum().backward()
+    assert _rel(a.grad, b.grad) <= 1e-6, name
+
+
+@pytest.mark.parametrize("batch", [(), (2,)])
+def test_take_rows_forward_bitwise_backward_within_1e6(batch):
+    """Per-call indices with repeats and rows read by no index (their
+    gradient is 0), against take_along_dim and its default backward."""
+    from smilify_tpu_torch.ops.gather import take_rows
+
+    rng = np.random.RandomState(4)
+    x = _t(rng.randn(*batch, 30, 3).astype(np.float32))
+    idx = torch.from_numpy(rng.randint(0, 20, (*batch, 200)))
+    up = _t(rng.randn(*batch, 200, 3).astype(np.float32))
+    a, b = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    got, want = take_rows(a, idx), torch.take_along_dim(b, idx[..., None], dim=-2)
+    assert torch.equal(got, want)
+    (got * up).sum().backward()
+    (want * up).sum().backward()
+    assert _rel(a.grad, b.grad) <= 1e-6
+    assert torch.equal(a.grad[..., 20:, :], torch.zeros_like(a.grad[..., 20:, :]))
