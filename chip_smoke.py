@@ -92,7 +92,10 @@ J=55, B=5, made from a seed) and checks their results:
     OpenCV (``tools/opencv_paths.py``, ``tests/fixtures/opencv_paths.npz``);
   * the learning proofs (phase 15): ``tools.prove_learning``'s ``memorize``
     for the single- and multi-view regressors (K1 renders their samples),
-    each held to the JAX gates: loss ratio ≥ 20, PCK@5 ≥ 0.7, PCK@10 ≥ 0.9.
+    each held to the JAX gates: loss ratio ≥ 20, PCK@5 ≥ 0.7, PCK@10 ≥ 0.9;
+    then a toy ``heldout`` in two calls (``--until 2``, then the rest): the
+    two calls' store digests equal (K1 regenerates the data bitwise), the
+    history continuous and the steps counted over both.
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after. Imports nothing of JAX or of the JAX package ``smilify_tpu``.
@@ -3216,8 +3219,54 @@ def learning_phase(dev, card):
         check(r["launches"]["exact_fwd"] == n_k1,
               f"memorize {mode}: K1 launched {r['launches']['exact_fwd']} times, expected {n_k1}")
         check(r["ok"], f"memorize {mode}: a JAX gate is missed: {r}")
-        out[mode] = r
+        out[mode] = {k: v for k, v in r.items() if k != "history"}
+    out["heldout_chunked"] = learning_chunked(dev, card, work)
     return out
+
+
+def learning_chunked(dev, card, work):
+    """Phase 15's chunked ``heldout`` at a toy size (``unet_micro`` at 32²,
+    200 samples, 4 epochs): two calls of ``prove_learning.run``, the first
+    ``until=2``, the second resuming from its ``epoch_1`` checkpoint. Each
+    regenerates the samples (K1 renders them) and the second refuses a store
+    whose SHA-256 differs from the first's, so the equal digests show that K1
+    regenerates the data bitwise; the history must run 0..3 without a gap."""
+    import contextlib
+
+    from smilify_tpu_torch.tools import prove_learning
+
+    toy = dict(epochs=4, samples=200, backbone="unet_micro", res=32, device=dev.type)
+    n_k1 = prove_learning.RUNS["heldout"]["views"]["sv"] * math.ceil(toy["samples"] / DATA_CHUNK)
+    calls = []
+    zero_counts()
+    t0 = time.perf_counter()
+    with open(work / "heldout_chunked.log", "w") as f, contextlib.redirect_stdout(f):
+        for until in (2, 4):
+            calls.append(prove_learning.run("sv", "heldout", str(work), until=until, **toy))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    first, last = calls
+    with open(work / "heldout_sv" / prove_learning.RECORD) as f:
+        record = json.load(f)
+    epochs = [h["epoch"] for h in record["history"]]
+    log(f"  heldout, 2 calls ({card}): epochs 0-1 then 2-3 in {wall:.1f} s; store SHA-256 "
+        f"{first['store_sha256'][:16]}... / {last['store_sha256'][:16]}...; history epochs "
+        f"{epochs}; steps {last['steps']} (calls: "
+        f"{[c['steps'] for c in last['chunks']]}); K1 {launches['exact_fwd']} launches; "
+        f"held-out PCK@10 {last['pck@10px']:.4f} (a toy: no gate)")
+    check(first.get("partial") and first["until"] == 2, f"heldout chunk 1: not a partial record: {first}")
+    check(first["store_sha256"] == last["store_sha256"] == record["store_sha256"],
+          "heldout chunks: K1 did not regenerate the samples bitwise (store digests differ)")
+    check(epochs == list(range(4)) and [(c["from"], c["until"]) for c in last["chunks"]]
+          == [(0, 2), (2, 4)], f"heldout chunks: the history is not continuous: {epochs}")
+    check(last["steps"] == sum(c["steps"] for c in last["chunks"]) == 4 * last["steps_per_epoch"],
+          f"heldout chunks: steps {last['steps']} do not count every epoch: {last['chunks']}")
+    check(launches["exact_fwd"] == 2 * n_k1,
+          f"heldout chunks: K1 launched {launches['exact_fwd']} times, expected {2 * n_k1}")
+    return {"wall_seconds": wall, "store_sha256": last["store_sha256"], "epochs": epochs,
+            "steps": last["steps"], "chunks": last["chunks"], "pck@10px": last["pck@10px"],
+            "launches": launches}
 
 
 def main():
@@ -3403,7 +3452,8 @@ def main():
     records[0]["authoring_launches"] = tools["authoring"]["k1_launches"]
     log("tools " + json.dumps(tools, default=float))
 
-    log("[15/15] the learning proofs: memorize, single- and multi-view, the JAX gates")
+    log("[15/15] the learning proofs: memorize, single- and multi-view, the JAX gates; a toy "
+        "heldout in two resumed calls")
     t0 = time.perf_counter()
     learning = learning_phase(dev, card)
     log(f"  phase 15: {time.perf_counter() - t0:.1f} s")

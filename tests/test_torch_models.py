@@ -184,6 +184,8 @@ BACKBONES = {
                    lambda: tbb.UNet(widths=(8, 16, 32), out_dim=32), 32),
     "unet_small": (lambda: jbb.UNet(widths=(32, 64, 128, 256), out_dim=256, dtype=F32),
                    lambda: tbb.UNet(widths=(32, 64, 128, 256), out_dim=256), 32),
+    "unet_mid": (lambda: jbb.UNet(widths=(64, 128, 256, 512), out_dim=512, dtype=F32),
+                 lambda: tbb.UNet(widths=(64, 128, 256, 512), out_dim=512), 32),
     "unet_resnet34": (lambda: jbb.UNetResNet(dtype=F32), lambda: tbb.UNetResNet(), 32),
 }
 
