@@ -30,8 +30,9 @@ J=55, B=5, made from a seed) and checks their results:
   * the data pipeline: ``data.synthetic.synthesize_multiview`` at its
     defaults (4 views at 96², chunks of 32) for 1,600 samples, one K1 launch
     of 32 frames a (view, chunk), K1 held to its plain version at that
-    shape; ``train.trainer.DeviceDataCache`` over the samples; 200 of them
-    written to HDF5 and read back where h5py and OpenCV import;
+    shape; ``train.trainer.DeviceDataCache`` over the samples; all of them
+    written to an HDF5 store by the port's codec (``utils/hdf5_io.py``) and
+    read back;
   * neural serving (``bench_all`` configs 4 and 5a at full width: ResNet-50
     + IEF head 256 × 4 × 3 at 224², seeded weights): the card held to the
     CPU in float32 (TF32 off) and bf16 autocast held to float32, with one
@@ -95,7 +96,20 @@ J=55, B=5, made from a seed) and checks their results:
     each held to the JAX gates: loss ratio ≥ 20, PCK@5 ≥ 0.7, PCK@10 ≥ 0.9;
     then a toy ``heldout`` in two calls (``--until 2``, then the rest): the
     two calls' store digests equal (K1 regenerates the data bitwise), the
-    history continuous and the steps counted over both.
+    history continuous and the steps counted over both;
+  * the HDF5 stores (phase 16), through the port's codec: the committed
+    fixtures of ``tests/fixtures/hdf5`` (h5py- and JAX-written) read bit for
+    bit as ``expected.npz`` holds them; phase 10's store written again by
+    ``data.synthetic.generate_synthetic_multiview`` (200 K1 launches), the
+    file phase 10's bit for bit; ``cli.train_multiview`` from it for 2
+    epochs through the host pipeline (ResNet-50 + IEF, bf16, 4 views at
+    96²), ``cli.benchmark_model`` on its checkpoint from the file and from
+    the same samples in memory (equal bit for bit), ``cli.dataset_viewer``
+    on one sample; ``cli.preprocess_replicant`` on 16 frames at 224² into
+    a single-view store, ``cli.train_regressor`` from it and
+    ``cli.run_inference`` on it; a SLEAP session written by
+    ``tools.synthetic_data.write_sleap_session`` (3 cameras, 24 frames)
+    through ``cli.preprocess_sleap_multiview``.
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after. Imports nothing of JAX or of the JAX package ``smilify_tpu``.
@@ -134,6 +148,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -186,11 +201,11 @@ SAT_SEED = 4
 TIMING_WINDOWS = 3
 # phase 10, the data pipeline: synthesize_multiview at its defaults (4 views
 # at 96², chunks of 32) for 1,600 samples, the first generalization run's
-# size; the device cache's batch; the samples written to HDF5 and read back
+# size; the device cache's batch; all the samples written to HDF5 by the
+# port's codec and read back
 DATA_SAMPLES = 1600
 DATA_VIEWS, DATA_RES, DATA_CHUNK = 4, 96, 32
 DATA_BATCH = 32
-DATA_HDF5_SAMPLES = 200
 # phase 11, neural serving: configs 4/5a at 224² on B=2 for the card-vs-CPU
 # check; run_inference on 16 frames; 64 multi-view samples in batches of 8;
 # config 4's profile at B=128
@@ -1198,9 +1213,10 @@ def data_phase(toy, dev, card):
     DATA_SAMPLES samples (one K1 launch a (view, chunk): exactly
     DATA_VIEWS × the chunks, and no K2-K4), K1 held to its plain version at
     that shape, the ``DeviceDataCache`` over the samples (a batch against the
-    host-side gather, an epoch of batches timed), and, where h5py and OpenCV
-    import, DATA_HDF5_SAMPLES samples written to HDF5 and read back. Returns
-    K1's record at the pipeline's shape, with its launches."""
+    host-side gather, an epoch of batches timed), and the samples written to
+    an HDF5 store by the port's codec and read back (:func:`hdf5_read_back`).
+    Returns K1's record at the pipeline's shape, with its launches and the
+    store's numbers, the samples and the store's path."""
     from smilify_tpu_torch.core.spec import load_model_spec
     from smilify_tpu_torch.data import synthetic as S
     from smilify_tpu_torch.tools.synthetic_data import write_model_pkl
@@ -1305,39 +1321,50 @@ def data_phase(toy, dev, card):
     rec["batches_per_s"] = n / secs
     del cache
 
-    missing = []
-    for lib in ("h5py", "cv2"):
-        try:
-            mod = __import__(lib)
-            log(f"  {lib}: imports (version {getattr(mod, '__version__', '?')})")
-        except ImportError as e:
-            log(f"  {lib}: does not import ({e})")
-            missing.append(lib)
-    if missing:
-        log(f"  HDF5: not written, the host lacks {' and '.join(missing)} (a host library, "
-            f"not the card)")
-        return rec
-    from smilify_tpu_torch.data.hdf5_dataset import MultiViewHDF5Dataset, write_multiview_hdf5
+    from smilify_tpu_torch.data.hdf5_dataset import write_multiview_hdf5
 
     path = str(work / "synthetic.h5")
     t0 = time.perf_counter()
-    write_multiview_hdf5(path, samples[:DATA_HDF5_SAMPLES], max_views=DATA_VIEWS,
-                         target_resolution=DATA_RES,
-                         canonical_camera_order=[f"cam_{i}" for i in range(DATA_VIEWS)],
-                         n_pose=spec.n_joints - 1, n_betas=spec.n_betas,
-                         dataset_type="synthetic_multiview")
+    write_multiview_hdf5(path, samples, **synthetic_store_args(spec))
+    write_s = time.perf_counter() - t0
+    rec["hdf5"] = {"write_seconds": write_s, **hdf5_read_back(path, samples, "phase 10's store")}
+    log(f"  HDF5 (the port's codec): {DATA_SAMPLES} samples written in {write_s:.2f} s, "
+        f"{rec['hdf5']['bytes']} bytes")
+    return rec, samples, path
+
+
+def synthetic_store_args(spec):
+    """``write_multiview_hdf5``'s arguments for phase 10's samples, as
+    ``data/synthetic.py::generate_synthetic_multiview`` passes them."""
+    return dict(max_views=DATA_VIEWS, target_resolution=DATA_RES,
+                canonical_camera_order=[f"cam_{i}" for i in range(DATA_VIEWS)],
+                n_pose=spec.n_joints - 1, n_betas=spec.n_betas, dataset_type="synthetic_multiview")
+
+
+def hdf5_read_back(path, samples, what):
+    """Every sample of the multi-view store at ``path`` read back through
+    ``MultiViewHDF5Dataset`` against ``samples`` (phase 10's): the arrays
+    equal, the JPEG images within a mean absolute error of 0.02. Returns the
+    file's bytes, the read's seconds and samples/s."""
+    from smilify_tpu_torch.data.hdf5_dataset import MultiViewHDF5Dataset
+
+    t0 = time.perf_counter()
     ds = MultiViewHDF5Dataset(path)
-    check(len(ds) == DATA_HDF5_SAMPLES, f"HDF5: {len(ds)} samples read back")
+    check(len(ds) == len(samples), f"HDF5 ({what}): {len(ds)} samples read back")
     worst = 0.0
-    for i in range(DATA_HDF5_SAMPLES):
+    for i in range(len(samples)):
         s, orig = ds[i], samples[i]
         for k in ("keypoints_2d", "keypoints_3d", "betas", "joint_rot", "global_rot"):
-            check(np.array_equal(s[k], orig[k]), f"HDF5: sample {i} {k} differs")
+            check(np.array_equal(s[k], orig[k]), f"HDF5 ({what}): sample {i} {k} differs")
         worst = max(worst, float(np.abs(s["images"] - orig["images"] / 255.0).mean()))
-    log(f"  HDF5: h5py and cv2 present; {DATA_HDF5_SAMPLES} samples written and read back in "
-        f"{time.perf_counter() - t0:.2f} s, arrays equal, JPEG mean abs error at most {worst:.4f}")
-    check(worst < 0.02, "HDF5: the JPEG images differ from the samples'")
-    return rec
+    secs = time.perf_counter() - t0
+    ds.close()
+    log(f"  HDF5 ({what}): {len(samples)} samples read back through MultiViewHDF5Dataset in "
+        f"{secs:.2f} s = {len(samples) / secs:.1f} samples/s, arrays equal, JPEG mean abs "
+        f"error at most {worst:.4f}")
+    check(worst < 0.02, f"HDF5 ({what}): the JPEG images differ from the samples'")
+    return {"bytes": os.path.getsize(path), "read_seconds": secs,
+            "read_samples_per_s": len(samples) / secs, "jpeg_mean_abs_err": worst}
 
 
 def perturb_zero_params(model, seed=0, std=0.02):
@@ -2672,9 +2699,9 @@ def tools_video(toy, dev, card, work):
     held to the same frames rendered on the CPU (frame 0: a CPU raster of
     512² takes ~25 s) by the Phong gate; --collage; run_inference --video on
     phase 11's single-view checkpoint (16 replicAnt frames at 224²); the
-    video path of run_inference on phase 13's 5a checkpoint (the card's
-    machine has no h5py for a multi-view store: the predictions come from
-    TOOLS_MV_SAMPLES random 4-view samples from a seed)."""
+    video path of run_inference on phase 13's 5a checkpoint (the
+    predictions come from TOOLS_MV_SAMPLES random 4-view samples from a
+    seed; phase 16 runs the CLIs on HDF5 stores)."""
     from smilify_tpu_torch.cli import generate_video, run_inference
     from smilify_tpu_torch.core.spec import load_model_spec
     from smilify_tpu_torch.tools.synthetic_data import write_replicant_sequence
@@ -3269,6 +3296,231 @@ def learning_chunked(dev, card, work):
             "launches": launches}
 
 
+# phase 16, the HDF5 stores on the card (slice 9): the committed fixtures
+# through the port's codec; phase 10's store written again by
+# generate_synthetic_multiview (K1 on the path); train_multiview and
+# benchmark_model on it at phase 12's regressor widths, dataset_viewer; a
+# single-view store from preprocess_replicant for train_regressor and
+# run_inference; a codec-written SLEAP session through preprocess_sleap_multiview
+HDF5_MV_B = 16                 # samples (of 4 views at 96²) a batch
+HDF5_SLEAP_FRAMES, HDF5_SLEAP_CAMS, HDF5_SLEAP_SIZE, HDF5_SLEAP_RES = 24, 3, (128, 96), 96
+
+
+def _sha256(path):
+    import hashlib
+
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def _regressor_set(res, batch, extra=()):
+    """The trainer's --set list at phase 12's regressor widths (ResNet-50 +
+    IEF head, bf16 autocast) through the host pipeline with thread workers."""
+    return ["model.backbone_name=resnet50", f"model.input_resolution={res}",
+            f"training.batch_size={batch}", "model.freeze_backbone=false",
+            "dataset.dataset_fraction=1.0", "training.use_mixed_precision=true",
+            "training.num_workers=2", "training.worker_mode=thread",
+            "output.num_visualization_samples=2", *extra]
+
+
+def _check_run(state, run, what, card, secs):
+    files = sorted(p.name for p in run.glob("*.pt"))
+    hist = [(h["epoch"], round(h["loss"], 5), round(h.get("val_loss", float("nan")), 5))
+            for h in state.history]
+    log(f"  {what} ({card}): 2 epochs, {secs:.2f} s; (epoch, loss, val_loss) {hist}; "
+        f"checkpoints {files}; kernel launches {read_counts()}")
+    check(len(state.history) == 2 and all(math.isfinite(h["loss"]) for h in state.history),
+          f"{what}: losses {hist}")
+    check({"best_model.pt", "final_model.pt"} <= set(files), f"{what}: checkpoints {files}")
+
+
+def hdf5_synthetic(spec, dev, card, work, samples, phase10_path):
+    """(b): phase 10's store written again, by ``generate_synthetic_multiview``
+    on the card (one K1 launch a (view, chunk)): the file must be phase 10's
+    bit for bit (the same samples, K1 bitwise reproducible, the same JPEG
+    bytes), and reads back as phase 10's did."""
+    from smilify_tpu_torch.data.synthetic import generate_synthetic_multiview
+
+    path = str(work / "synthetic.h5")
+    n_k1 = DATA_VIEWS * math.ceil(DATA_SAMPLES / DATA_CHUNK)
+    zero_counts()
+    t0 = time.perf_counter()
+    generate_synthetic_multiview(spec, path, DATA_SAMPLES, n_views=DATA_VIEWS,
+                                 resolution=DATA_RES, chunk_size=DATA_CHUNK, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    same = _sha256(path) == _sha256(phase10_path)
+    log(f"  generate_synthetic_multiview ({card}): {DATA_SAMPLES} samples × {DATA_VIEWS} views at "
+        f"{DATA_RES}² rendered and written in {secs:.2f} s; launches {counts}; the file is "
+        f"phase 10's bit for bit: {same}")
+    check(counts["exact_fwd"] == n_k1, f"generate_synthetic_multiview launched K1 "
+                                       f"{counts['exact_fwd']} times, expected {n_k1}")
+    check(all(n == 0 for k, n in counts.items() if k != "exact_fwd"),
+          f"generate_synthetic_multiview launched another kernel than K1: {counts}")
+    check(same, "generate_synthetic_multiview's store differs from phase 10's")
+    back = hdf5_read_back(path, samples, "generate_synthetic_multiview's store")
+    return {"seconds": secs, "launches": counts["exact_fwd"], "path": path, **back}
+
+
+def hdf5_multiview(spec, pkl, dev, card, work, samples, store_path):
+    """(c): train_multiview from the store for 2 epochs through the host
+    pipeline; benchmark_model on its final_model from the file and from the
+    same samples in memory (``multiview_store``: the same JPEG bytes), whose
+    metrics must be equal bit for bit; dataset_viewer renders a sample."""
+    from smilify_tpu_torch.cli import benchmark_model, dataset_viewer, train_multiview
+    from smilify_tpu_torch.data.hdf5_dataset import multiview_store
+
+    run = work / "train_multiview"
+    zero_counts()
+    t0 = time.perf_counter()
+    state = train_multiview.main([
+        "--model", pkl, "--data-path", store_path, "--epochs", "2", "--output-dir", str(run),
+        "--device", dev.type, "--set",
+        *_regressor_set(DATA_RES, HDF5_MV_B, [f"multiview.num_views_to_use={DATA_VIEWS}"])])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    _check_run(state, run, "train_multiview from the store", card, train_s)
+
+    ckpt = str(run / "final_model")
+    metrics, bench_s = {}, {}
+    store = multiview_store(samples, **synthetic_store_args(spec))
+    for label, argv, source in (("file", ["--dataset-path", store_path], None),
+                                ("memory", [], store)):
+        t0 = time.perf_counter()
+        acc = benchmark_model.main(["--checkpoint", ckpt, "--split", "test", "--device", dev.type,
+                                    "--output-dir", str(work / f"benchmark_{label}"), *argv],
+                                   source=source)
+        bench_s[label] = time.perf_counter() - t0
+        metrics[label] = {"pck": acc.pck_curve("input"), "mpjpe": acc.mpjpe_stats()}
+    same = repr(metrics["file"]) == repr(metrics["memory"])
+    pck = metrics["file"]["pck"]
+    log(f"  benchmark_model on final_model ({card}): from the file {bench_s['file']:.2f} s, from "
+        f"memory {bench_s['memory']:.2f} s; PCK@5 {pck.get(5)}, PCK@10 {pck.get(10)}, MPJPE "
+        f"{metrics['file']['mpjpe']}; equal bit for bit: {same}")
+    check(same, f"benchmark_model: the file's metrics differ from the in-memory store's: {metrics}")
+    check(all(math.isfinite(v) for v in pck.values()), f"benchmark_model: PCK {pck}")
+
+    out = work / "viewer"
+    zero_counts()
+    t0 = time.perf_counter()
+    dataset_viewer.main(["--dataset", store_path, "--output", str(out), "--samples", "1",
+                         "--model", pkl, "--render-smal", "--device", dev.type])
+    torch.cuda.synchronize()
+    pngs = sorted(p.name for p in out.glob("*.png"))
+    log(f"  dataset_viewer ({card}): {pngs} in {time.perf_counter() - t0:.2f} s; launches "
+        f"{read_counts()}")
+    check(pngs and (out / "index.html").exists(), f"dataset_viewer wrote {pngs}")
+    return {"train_seconds": train_s, "history": state.history, "benchmark_seconds": bench_s,
+            "pck@5px": pck.get(5), "pck@10px": pck.get(10), "mpjpe": metrics["file"]["mpjpe"]}
+
+
+def hdf5_singleview(toy, pkl, dev, card, work):
+    """(d): preprocess_replicant on phase 12's replicAnt folder (the same
+    CLI_FRAMES frames at 224², written again here) into a single-view store;
+    train_regressor on the store for 2 epochs; run_inference on the store."""
+    from smilify_tpu_torch.cli import preprocess_replicant, run_inference, train_regressor
+    from smilify_tpu_torch.tools.synthetic_data import write_replicant_sequence
+
+    folder, _ = write_replicant_sequence(str(work / "seq"), toy, CLI_FRAMES, SERVE_RES,
+                                         layout="unreal")
+    path = str(work / "singleview.h5")
+    t0 = time.perf_counter()
+    preprocess_replicant.main(["--input", folder, "--output", path, "--model", pkl,
+                               "--resolution", str(SERVE_RES)])
+    prep_s = time.perf_counter() - t0
+    run = work / "train_regressor"
+    zero_counts()
+    t0 = time.perf_counter()
+    state = train_regressor.main([
+        "--model", pkl, "--data-path", path, "--epochs", "2", "--output-dir", str(run),
+        "--device", dev.type, "--set",
+        *_regressor_set(SERVE_RES, CLI_BATCH, ["dataset.train_ratio=0.5", "dataset.val_ratio=0.25",
+                                               "dataset.test_ratio=0.25"])])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    _check_run(state, run, "train_regressor from the single-view store", card, train_s)
+    zero_counts()
+    t0 = time.perf_counter()
+    traj = run_inference.main(["--checkpoint", str(run / "final_model"), "--data-path", path,
+                               "--device", dev.type])
+    torch.cuda.synchronize()
+    infer_s = time.perf_counter() - t0
+    log(f"  preprocess_replicant: {CLI_FRAMES} frames at {SERVE_RES}² → {os.path.getsize(path)} "
+        f"bytes in {prep_s:.2f} s; run_inference on the store ({card}): {infer_s:.2f} s, outputs "
+        f"{sorted(traj)}; launches {read_counts()}")
+    check(all(np.isfinite(np.asarray(v)).all() and len(v) == CLI_FRAMES for v in traj.values()),
+          "run_inference on the single-view store: non-finite or missing predictions")
+    return {"preprocess_seconds": prep_s, "train_seconds": train_s, "history": state.history,
+            "run_inference_seconds": infer_s}
+
+
+def hdf5_sleap(pkl, card, work):
+    """(e): a SLEAP session written by the port (tools/synthetic_data.py::
+    write_sleap_session: the codec's analysis .h5 and .slp, OpenCV's videos,
+    a calibration) through preprocess_sleap_multiview; its store read back."""
+    from smilify_tpu_torch.cli import preprocess_sleap_multiview
+    from smilify_tpu_torch.core.spec import load_model_spec
+    from smilify_tpu_torch.data.hdf5_dataset import MultiViewHDF5Dataset
+    from smilify_tpu_torch.tools.synthetic_data import SLEAP_NODES, write_sleap_session
+
+    cams = tuple(f"cam{c}" for c in range(HDF5_SLEAP_CAMS))
+    sess = write_sleap_session(str(work / "sleap" / "sess"), HDF5_SLEAP_FRAMES, cams,
+                               consistent=True, size=HDF5_SLEAP_SIZE)
+    names = list(load_model_spec(pkl, align_symmetry=False, device="cpu").joint_names)
+    lookup = work / "sleap" / "lookup.csv"
+    lookup.write_text("sleap_name,model_name\n" + "".join(
+        f"{n},{names[i + 1]}\n" for i, n in enumerate(SLEAP_NODES[:3])) + f"{SLEAP_NODES[3]},\n")
+    path = str(work / "sleap.h5")
+    t0 = time.perf_counter()
+    preprocess_sleap_multiview.main([
+        "--sessions", sess, "--output", path, "--model", pkl, "--joint-lookup", str(lookup),
+        "--resolution", str(HDF5_SLEAP_RES), "--crop-mode", "centred", "--min-views", "2"])
+    secs = time.perf_counter() - t0
+    ds = MultiViewHDF5Dataset(path)
+    s = ds[0]
+    log(f"  preprocess_sleap_multiview: {HDF5_SLEAP_FRAMES} frames × {HDF5_SLEAP_CAMS} cameras "
+        f"({HDF5_SLEAP_SIZE[0]}x{HDF5_SLEAP_SIZE[1]}) → {len(ds)} samples in {secs:.2f} s; "
+        f"sample 0: {int(s['view_mask'].sum())} views, images {s['images'].shape}")
+    check(len(ds) > 0 and s["images"].shape[1:] == (HDF5_SLEAP_RES, HDF5_SLEAP_RES, 3)
+          and all(np.isfinite(ds[i]["keypoints_2d"]).all() for i in range(len(ds))),
+          f"preprocess_sleap_multiview's store: {len(ds)} samples")
+    ds.close()
+    return {"seconds": secs, "samples": len(ds)}
+
+
+def hdf5_phase(toy, dev, card, samples, phase10_path):
+    """Phase 16: the HDF5 stores on the card (see the constants above). (a)
+    every committed fixture read through the codec equals its expected
+    contents (tools/hdf5_fixtures.py); (b)-(e) as their functions say."""
+    from smilify_tpu_torch.core.spec import load_model_spec
+    from smilify_tpu_torch.tools import hdf5_fixtures
+    from smilify_tpu_torch.tools.synthetic_data import write_model_pkl
+
+    work = ROOT / "build" / "smoke_hdf5"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    bad = hdf5_fixtures.check()
+    log(f"  fixtures: {len(bad)} files read through the codec in {time.perf_counter() - t0:.2f} s; "
+        f"keys that differ from expected.npz: {bad}")
+    check(not any(bad.values()), f"HDF5 fixtures differ from their expected contents: {bad}")
+    pkl = write_model_pkl(str(work / "stick_width.pkl"), toy)
+    spec = load_model_spec(pkl, align_symmetry=False, device=dev)      # phase 10's: Morton faces
+    out = {}
+    for part, fn in (("synthetic", lambda: hdf5_synthetic(spec, dev, card, work, samples,
+                                                          phase10_path)),
+                     ("multiview", lambda: hdf5_multiview(spec, pkl, dev, card, work, samples,
+                                                          out["synthetic"]["path"])),
+                     ("singleview", lambda: hdf5_singleview(toy, pkl, dev, card, work)),
+                     ("sleap", lambda: hdf5_sleap(pkl, card, work))):
+        t0 = time.perf_counter()
+        out[part] = fn()
+        out[part]["phase_seconds"] = time.perf_counter() - t0
+        log(f"  ({part}: {out[part]['phase_seconds']:.1f} s)")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs an NVIDIA GPU")
@@ -3291,7 +3543,7 @@ def main():
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
 
-    log("[1/15] build")
+    log("[1/16] build")
     t0 = time.perf_counter()
     libs = _kernels.build_all()
     log(f"  built {', '.join(p.name for p in libs.values())} in {time.perf_counter() - t0:.1f} s")
@@ -3311,7 +3563,7 @@ def main():
     spec, spec_name = load_spec(device=dev)
     log(f"  spec: {spec_name}, B={spec.n_betas}")
 
-    log("[2/15] kernels against their plain versions at the driven paths' shapes")
+    log("[2/16] kernels against their plain versions at the driven paths' shapes")
     shape = source_constants(RASTER_CU.read_text(), FWD_SHAPE + BWD_SHAPE)
     log(f"  launch shapes (csrc/raster.cu): {shape}")
     raster = ("exact_fwd", "exact_bwd", "worklist_fwd", "worklist_bwd")
@@ -3330,7 +3582,7 @@ def main():
     for n_frames, size in ((1, SIZE),) + shapes:
         kernel_phase(spec, n_frames, size, dev, saturating=True)
     records.append(peak_phase(dev))
-    log("[3/15] main path: SmalFitter, 4 stages × 10 steps, 1 frame at 512²")
+    log("[3/16] main path: SmalFitter, 4 stages × 10 steps, 1 frame at 512²")
     data = synthetic_fit_data(spec, 1, SIZE)
     cover = float(data.sil.mean())
     log(f"  target silhouette covers {cover:.4f} of the image")
@@ -3375,41 +3627,41 @@ def main():
     log(f"  IoU of capped (cap {cap}) against exact on the exact fit's pose: {iou_cap:.4f}")
     check(iou_cap >= 0.99, "capped raster IoU against exact below 0.99")
 
-    log("[4/15] references")
+    log("[4/16] references")
     reference_phase(spec, dev)
 
-    log("[5/15] where the time goes: 1 and 10 frames")
+    log("[5/16] where the time goes: 1 and 10 frames")
     data10 = synthetic_fit_data(spec, 10, SIZE)
     for frames, d in ((1, data), (10, data10)):
         for mode, (mode_cap, _) in modes.items():
             profile_phase(spec, d, dev, f"{mode}, {frames} frame(s),", mode_cap)
 
-    log("[6/15] bench path: bench, bench_all configs 1, 3, 3b, 3c (short windows)")
+    log("[6/16] bench path: bench, bench_all configs 1, 3, 3b, 3c (short windows)")
     bench_counts = bench_phase(spec, spec_name, dev)
     records[4]["launches"] = bench_counts["fma_peak"]
 
-    log("[7/15] batched and progressive fitters, bench_corpus")
+    log("[7/16] batched and progressive fitters, bench_corpus")
     batched_phase(spec, spec_name, dev)
 
-    log("[8/15] fitter CLIs: optimize_to_joints (capped, exact, texture), optimize_corpus at 512²; "
+    log("[8/16] fitter CLIs: optimize_to_joints (capped, exact, texture), optimize_corpus at 512²; "
         "the JPEG fixtures; optimize_to_joints on a JPEG frame, card and CPU")
     t0 = time.perf_counter()
     cli = cli_phase(spec, dev, card)
     log(f"  phase 8: {time.perf_counter() - t0:.1f} s")
     log("cli " + json.dumps(cli))
 
-    log("[9/15] 3D registration: 8 targets, 2 stages, twice (bitwise equal); bench_all config2")
+    log("[9/16] 3D registration: 8 targets, 2 stages, twice (bitwise equal); bench_all config2")
     t0 = time.perf_counter()
     registration_phase(spec, dev, card)
     log(f"  phase 9: {time.perf_counter() - t0:.1f} s")
 
-    log("[10/15] data pipeline: synthesize_multiview (1,600 samples, 4 views at 96²), "
+    log("[10/16] data pipeline: synthesize_multiview (1,600 samples, 4 views at 96²), "
         "DeviceDataCache, HDF5")
     t0 = time.perf_counter()
-    records[0]["data_pipeline"] = data_phase(spec, dev, card)
+    records[0]["data_pipeline"], data_samples, data_store = data_phase(spec, dev, card)
     log(f"  phase 10: {time.perf_counter() - t0:.1f} s")
 
-    log("[11/15] neural serving: configs 4/5a card vs CPU, run_inference, multi-view serving, "
+    log("[11/16] neural serving: configs 4/5a card vs CPU, run_inference, multi-view serving, "
         "bench_all configs 4/5a/5b, config 4's profile")
     t0 = time.perf_counter()
     serving = serving_phase(spec, dev, card)
@@ -3417,7 +3669,7 @@ def main():
     records[0]["serving_data"] = serving["multiview_data"]["k1"]
     log("serving " + json.dumps(serving))
 
-    log("[12/15] training: bench_all configs 4b/4c/5c and 4b's profile, one float32 step card "
+    log("[12/16] training: bench_all configs 4b/4c/5c and 4b's profile, one float32 step card "
         "vs CPU, a learning check from DeviceDataCache, train_regressor (cache and host "
         "pipeline) then run_inference, train_pointnet, the input-pipeline bench")
     t0 = time.perf_counter()
@@ -3426,7 +3678,7 @@ def main():
     records[0]["training_data_launches"] = training["learning"]["k1_launches"]
     log("training " + json.dumps(training, default=float))
 
-    log("[13/15] slice 5: serving export (configs 4/5a, a fresh process, B=1/8/128); the "
+    log("[13/16] slice 5: serving export (configs 4/5a, a fresh process, B=1/8/128); the "
         "sharded fitters and config 4b's data-parallel step on 1 rank over NCCL and on 2 ranks "
         "of the card over gloo")
     t0 = time.perf_counter()
@@ -3441,7 +3693,7 @@ def main():
             for key, run in scale.items() for r in run["ranks"]}
     log("scaleout " + json.dumps({"export": export, "scaleout": scale}, default=float))
 
-    log("[14/15] slice 6, the tools: generate_video and run_inference --video; the OpenCV paths "
+    log("[14/16] slice 6, the tools: generate_video and run_inference --video; the OpenCV paths "
         "(raw video, an augmented epoch, blur, warps, undistortion); authoring from "
         "phase 9's registration (K1 once on the authored model), the native PCA loader, "
         "prepare_meshes; export_gltf on phase 11's animation; monitoring")
@@ -3452,13 +3704,24 @@ def main():
     records[0]["authoring_launches"] = tools["authoring"]["k1_launches"]
     log("tools " + json.dumps(tools, default=float))
 
-    log("[15/15] the learning proofs: memorize, single- and multi-view, the JAX gates; a toy "
+    log("[15/16] the learning proofs: memorize, single- and multi-view, the JAX gates; a toy "
         "heldout in two resumed calls")
     t0 = time.perf_counter()
     learning = learning_phase(dev, card)
     log(f"  phase 15: {time.perf_counter() - t0:.1f} s")
     records[0]["learning_launches"] = {m: r["launches"]["exact_fwd"] for m, r in learning.items()}
     log("learning " + json.dumps(learning, default=float))
+
+    log("[16/16] the HDF5 stores (the port's codec): the fixtures; phase 10's store by "
+        "generate_synthetic_multiview (K1); train_multiview, benchmark_model and "
+        "dataset_viewer on it; preprocess_replicant, train_regressor and run_inference on a "
+        "single-view store; a SLEAP session through preprocess_sleap_multiview")
+    t0 = time.perf_counter()
+    hdf5 = hdf5_phase(spec, dev, card, data_samples, data_store)
+    del data_samples
+    log(f"  phase 16: {time.perf_counter() - t0:.1f} s")
+    records[0]["hdf5_launches"] = hdf5["synthetic"]["launches"]
+    log("hdf5 " + json.dumps(hdf5, default=float))
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}), flush=True)

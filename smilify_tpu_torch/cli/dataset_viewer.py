@@ -8,8 +8,8 @@ masks, parameter summaries, and dataset statistics.
 Port of ``smilify_tpu/cli/dataset_viewer.py``. It runs on ``--device``
 (default ``cuda``; it raises when there is no card): ``--render-smal`` poses
 the model and renders it with the Phong renderer there. The panels are PNG
-(``utils/image_io.write_png``); reading an HDF5 dataset needs h5py and
-OpenCV.
+(``utils/image_io.write_png``); an HDF5 dataset is read by the port's codec
+(``utils/hdf5_io.py``), its JPEG images through OpenCV.
 
 Usage:
   python -m smilify_tpu_torch.cli.dataset_viewer --dataset <h5|dir> --output report/ \

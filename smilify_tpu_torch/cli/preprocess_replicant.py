@@ -8,8 +8,8 @@ schema. Frames that fail to load are skipped and recorded
 (skipped_frame_indices metadata, the reference's per-frame resilience).
 
 Port of ``smilify_tpu/cli/preprocess_replicant.py``. It runs on the host
-only (the model is read for its joint order); the HDF5 output needs h5py and
-OpenCV.
+only (the model is read for its joint order); the HDF5 output is written by
+the port's codec (``utils/hdf5_io.py``), the JPEG images through OpenCV.
 
 Usage:
   python -m smilify_tpu_torch.cli.preprocess_replicant --input <raw_dir> \
@@ -75,8 +75,6 @@ def main(argv=None):
 
     import glob
 
-    import h5py
-
     from smilify_tpu_torch.core.spec import load_model_spec
     from smilify_tpu_torch.data.hdf5_dataset import write_singleview_hdf5
 
@@ -110,10 +108,9 @@ def main(argv=None):
         args.output, samples, args.resolution,
         n_pose=spec.n_joints - 1, n_betas=samples[0]["betas"].shape[0],
         dataset_type="optimized_hdf5", jpeg_quality=args.jpeg_quality,
+        extra_metadata={"skipped_frame_indices": [i for i, _ in skipped],
+                        "source": os.path.abspath(args.input)},
     )
-    with h5py.File(args.output, "r+") as f:
-        f["metadata"].attrs["skipped_frame_indices"] = [i for i, _ in skipped]
-        f["metadata"].attrs["source"] = os.path.abspath(args.input)
     print(f"wrote {len(samples)} samples → {args.output} ({len(skipped)} skipped)")
 
 

@@ -14,7 +14,8 @@ Expected layout: <trial>/<camera_name>/ each a standard replicAnt frame dir
 
 Port of ``smilify_tpu/cli/preprocess_replicant_multiview.py``. It runs on
 the host only (the model is read for its joint order and sizes); the HDF5
-output needs h5py and OpenCV.
+output is written by the port's codec (``utils/hdf5_io.py``), the JPEG
+images through OpenCV.
 
 Usage:
   python -m smilify_tpu_torch.cli.preprocess_replicant_multiview --input <trial_dir> \

@@ -18,8 +18,8 @@ Sessions are processed in parallel (ProcessPoolExecutor) with per-frame and
 per-camera skip resilience + a statistics report, like the reference.
 
 Port of ``smilify_tpu/cli/preprocess_sleap.py``. It runs on the host only
-(the model is read for its joint names and sizes). Video decode and undistortion need OpenCV, the HDF5 output h5py and
-OpenCV.
+(the model is read for its joint names and sizes). Video decode and undistortion need OpenCV; the HDF5
+files are read and written by the port's codec (``utils/hdf5_io.py``).
 
 Usage:
   python -m smilify_tpu_torch.cli.preprocess_sleap SESSIONS_DIR OUT.h5 \
@@ -129,9 +129,9 @@ def process_session(job) -> Dict:
     if opts["use_reprojections"]:
         cands = sorted(glob.glob(os.path.join(session_dir, "reprojections*.h5")))
         if cands:
-            import h5py
+            from smilify_tpu_torch.utils import hdf5_io
 
-            with h5py.File(cands[0], "r") as f:
+            with hdf5_io.File(cands[0], "r") as f:
                 reproj = {k: f[k][:] for k in f.keys() if hasattr(f[k], "shape")}
 
     layout = find_session_layout(session_dir)

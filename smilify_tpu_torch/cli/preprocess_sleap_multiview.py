@@ -15,8 +15,8 @@ schema with a canonical camera order across sessions. Sessions run in
 parallel workers.
 
 Port of ``smilify_tpu/cli/preprocess_sleap_multiview.py``. It runs on the
-host only (the model is read for its joint names and sizes). Video decode and undistortion need OpenCV, the HDF5 output
-h5py and OpenCV.
+host only (the model is read for its joint names and sizes). Video decode and undistortion need OpenCV; the HDF5
+files are read and written by the port's codec (``utils/hdf5_io.py``).
 
 Usage:
   python -m smilify_tpu_torch.cli.preprocess_sleap_multiview \
@@ -56,9 +56,9 @@ def collect_session_frames(session_dir, cams, joint_names=None, lookup=None,
     if use_reprojections:
         cands = sorted(glob.glob(os.path.join(session_dir, "reprojections*.h5")))
         if cands:
-            import h5py
+            from smilify_tpu_torch.utils import hdf5_io
 
-            with h5py.File(cands[0], "r") as f:
+            with hdf5_io.File(cands[0], "r") as f:
                 reproj = {k: f[k][:] for k in f.keys() if hasattr(f[k], "shape")}
 
     per_cam = {}

@@ -24,8 +24,8 @@ Usage:
 ``--shard`` splits each batch over every visible card, the model
 replicated on each (the JAX CLI's batches sharded over the local devices).
 
-On the card's machine, replicAnt frames must be PNG files (their ``.JPG``
-names may hold PNG data) and HDF5 stores cannot be read (no h5py there).
+HDF5 stores are read by the port's codec (``utils/hdf5_io.py``), on the
+card's machine too.
 """
 
 from __future__ import annotations

@@ -142,14 +142,13 @@ def cmd_refine_cameras(args):
 
 
 def cmd_reproject(args):
-    import h5py
-
     from smilify_tpu_torch.data.sleap import generate_reprojections, read_points3d_h5
+    from smilify_tpu_torch.utils import hdf5_io
 
     cams = _resolve_calibration(args)
     pts3d = read_points3d_h5(args.points3d)
     reproj = generate_reprojections(pts3d, cams)  # (F, V, K, 2)
-    with h5py.File(args.output, "w") as f:
+    with hdf5_io.File(args.output, "w") as f:
         for v, cam in enumerate(cams):
             f.create_dataset(cam.name, data=reproj[:, v])
         f.attrs["n_cameras"] = len(cams)

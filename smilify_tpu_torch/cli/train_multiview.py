@@ -7,9 +7,8 @@
 Trains on one device (``--device``, default ``cuda``; it raises without a
 card unless given ``cpu``), or data-parallel under torchrun or
 ``--multihost`` as ``cli/train_regressor.py`` does, from a multi-view HDF5
-store, which needs h5py
-(the card's machine has none: there the multi-view samples come from
-``data/synthetic.py::synthesize_multiview`` held in a ``DeviceDataCache``).
+store (read by ``utils/hdf5_io.py``) or, in memory, the samples of
+``data/synthetic.py::synthesize_multiview`` held in a ``DeviceDataCache``.
 The epoch loop, checkpoints and visualizations are the single-view
 trainer's (``train/trainer.py::train_epochs``).
 """

@@ -12,7 +12,7 @@ the model in ``DistributedDataParallel`` with its BatchNorms on the global
 batch, ``training.batch_size`` the global batch (rounded to a multiple of
 ranks × accumulation steps), checkpoints and plots written by rank 0
 (``train/trainer.py::train_epochs``). The data: a replicAnt folder, a single- or
-multi-view HDF5 store (HDF5 needs h5py) or the weighted multi-dataset mix,
+multi-view HDF5 store (read by ``utils/hdf5_io.py``) or the weighted multi-dataset mix,
 split with the config's seed, optionally cached decoded, augmented, and
 held on the device (``training.device_data_cache``). Checkpoints are
 ``<output-dir>/<name>.pt`` beside ``<name>.meta.json`` (``best_model``,

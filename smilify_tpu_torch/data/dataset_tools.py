@@ -19,12 +19,12 @@ from typing import List, Optional
 
 import numpy as np
 
+from smilify_tpu_torch.utils import hdf5_io
+
 
 def _read_all(path: str):
-    import h5py
-
     out = {}
-    with h5py.File(path, "r") as f:
+    with hdf5_io.File(path, "r") as f:
         out["meta"] = {k: (v.item() if hasattr(v, "item") else v) for k, v in f["metadata"].attrs.items()}
         V = int(out["meta"]["max_views"])
         N = int(out["meta"]["num_samples"])
@@ -46,17 +46,15 @@ def _read_all(path: str):
 def _write_all(path: str, d: dict, dataset_type: str = "merged_multiview"):
     import json
 
-    import h5py
-
     N = len(d["images"])
     V = d["view_mask"].shape[1]
-    with h5py.File(path, "w") as f:
+    with hdf5_io.File(path, "w") as f:
         gi = f.create_group("multiview_images")
         gk = f.create_group("multiview_keypoints")
         gp = f.create_group("parameters")
         ga = f.create_group("auxiliary")
         gm = f.create_group("metadata")
-        dt = h5py.special_dtype(vlen=np.uint8)
+        dt = hdf5_io.vlen_dtype(np.uint8)
         for v in range(V):
             ds = gi.create_dataset(f"image_jpeg_view_{v}", shape=(N,), dtype=dt)
             for i in range(N):

@@ -1,9 +1,11 @@
 """HDF5 dataset format: writer + readers (single-view and multi-view; port
-of ``smilify_tpu/data/hdf5_dataset.py``, byte-compatible with its files: the
-images are JPEG through OpenCV and the files are read and written with h5py,
-both imported when used). A multi-view store can also be held in memory
-(:func:`multiview_store` → :class:`MultiViewStore`), which the multi-view
-reader takes in place of a path: the machines without h5py train on it.
+of ``smilify_tpu/data/hdf5_dataset.py``, the same files: the images are JPEG
+through OpenCV, imported when used, and the files are read and written by
+the port's own HDF5 codec, ``utils/hdf5_io.py``, so h5py and the JAX
+package read what the port writes and the other way round). A multi-view
+store can also be held in memory (:func:`multiview_store` →
+:class:`MultiViewStore`), which the multi-view reader takes in place of a
+path.
 
 The on-disk schema is the reference's (so datasets interchange):
 multi-view (preprocess_sleap_multiview_dataset.py:1441-1720):
@@ -39,6 +41,8 @@ from types import SimpleNamespace
 from typing import Dict, List, Optional
 
 import numpy as np
+
+from smilify_tpu_torch.utils import hdf5_io
 
 
 def encode_jpeg(img_uint8: np.ndarray, quality: int = 90) -> np.ndarray:
@@ -175,21 +179,17 @@ def multiview_store(
 
 def write_multiview_hdf5(path: str, samples: List[Dict], *args, **kwargs):
     """Write multi-view samples in the reference schema to the HDF5 file
-    ``path`` (needs h5py); the arguments are :func:`multiview_store`'s."""
-    import h5py
-
+    ``path``; the arguments are :func:`multiview_store`'s."""
     store = multiview_store(samples, *args, **kwargs)
-    with h5py.File(path, "w") as f:
+    with hdf5_io.File(path, "w") as f:
         for group in ("multiview_images", "multiview_keypoints", "parameters", "auxiliary"):
             f.create_group(group)
-        dt_vlen = h5py.special_dtype(vlen=np.uint8)
         for key, arr in store.arrays.items():
-            if arr.dtype == object:
-                ds = f.create_dataset(key, shape=arr.shape, dtype=dt_vlen)
-                for i, buf in enumerate(arr):
-                    ds[i] = buf
-            else:
-                f.create_dataset(key, data=arr)
+            if arr.dtype == object:                         # JPEG buffers
+                arr = arr.view(hdf5_io.vlen_dtype(np.uint8))
+            elif arr.dtype.kind == "S":                     # lists of bytes to the JAX writer:
+                arr = [bytes(b) for b in arr]               # variable-length ASCII strings
+            f.create_dataset(key, data=arr)
         gm = f.create_group("metadata")
         for k, v in store.attrs.items():
             gm.attrs[k] = v
@@ -200,7 +200,7 @@ class MultiViewStore:
     by :class:`MultiViewHDF5Dataset` and :func:`detect_dataset_type` as they
     read an open HDF5 file: ``store["group/name"][i]`` is a numpy array (the
     JPEG columns: 1-D uint8 buffers), ``store["metadata"].attrs`` the
-    metadata. For the machines without h5py (the card's)."""
+    metadata. The learning proofs and ``DeviceDataCache`` train on it."""
 
     def __init__(self, arrays: Dict[str, np.ndarray], attrs: Dict):
         self.arrays = arrays
@@ -225,12 +225,10 @@ class MultiViewStore:
 
 
 def _open(source):
-    """An HDF5 file at the path ``source`` (h5py), or the in-memory store."""
+    """An HDF5 file at the path ``source``, or the in-memory store."""
     if isinstance(source, MultiViewStore):
         return source
-    import h5py
-
-    return h5py.File(source, "r")
+    return hdf5_io.File(source, "r")
 
 
 # ---------------------------------------------------------------------------
@@ -339,7 +337,7 @@ class MultiViewHDF5Dataset:
         return self._file
 
     def __getstate__(self):
-        # open h5py handles can't pickle — spawn workers reopen lazily
+        # spawn workers reopen the file lazily
         return {**self.__dict__, "_file": None}
 
     def __len__(self):
@@ -511,11 +509,9 @@ class SingleViewHDF5Dataset:
     )
 
     def __init__(self, path: str):
-        import h5py
-
         self.path = path
         self._file = None
-        with h5py.File(path, "r") as f:
+        with _open(path) as f:
             m = dict(f["metadata"].attrs)
             self.num_samples = int(m["num_samples"])
             self.n_joints = int(m.get("n_joints", 0))
@@ -524,14 +520,12 @@ class SingleViewHDF5Dataset:
 
     @property
     def file(self):
-        import h5py
-
         if self._file is None:
-            self._file = h5py.File(self.path, "r")
+            self._file = _open(self.path)
         return self._file
 
     def __getstate__(self):
-        # open h5py handles can't pickle — spawn workers reopen lazily
+        # spawn workers reopen the file lazily
         return {**self.__dict__, "_file": None}
 
     def __len__(self):
@@ -562,18 +556,18 @@ def write_singleview_hdf5(
     n_betas: int,
     dataset_type: str = "optimized_hdf5",
     jpeg_quality: int = 90,
+    extra_metadata: Optional[Dict] = None,
 ):
-    """Write single-view samples (images + keypoints + parameters)."""
-    import h5py
-
+    """Write single-view samples (images + keypoints + parameters);
+    ``extra_metadata`` joins the metadata attributes."""
     N = len(samples)
-    with h5py.File(path, "w") as f:
+    with hdf5_io.File(path, "w") as f:
         gi = f.create_group("images")
         gk = f.create_group("keypoints")
         gp = f.create_group("parameters")
         ga = f.create_group("auxiliary")
         gm = f.create_group("metadata")
-        dt_vlen = h5py.special_dtype(vlen=np.uint8)
+        dt_vlen = hdf5_io.vlen_dtype(np.uint8)
         img_ds = gi.create_dataset("image_jpeg", shape=(N,), dtype=dt_vlen)
         K = samples[0]["keypoints_2d"].shape[0]
         kp = np.zeros((N, K, 2), np.float32)
@@ -601,7 +595,7 @@ def write_singleview_hdf5(
         for key, dtype in (("session_name", None), ("camera_name", None)):
             if all(s.get(key) is not None for s in samples):
                 ga.create_dataset(key, data=np.asarray([str(s[key]) for s in samples],
-                                                       dtype=h5py.string_dtype()))
+                                                       dtype=hdf5_io.string_dtype()))
         if all(s.get("frame_idx") is not None for s in samples):
             ga.create_dataset("frame_idx",
                               data=np.asarray([int(s["frame_idx"]) for s in samples], np.int64))
@@ -615,3 +609,5 @@ def write_singleview_hdf5(
         gm.attrs["is_multiview"] = False
         gm.attrs["n_pose"] = n_pose
         gm.attrs["n_betas"] = n_betas
+        for k, v in (extra_metadata or {}).items():
+            gm.attrs[k] = v

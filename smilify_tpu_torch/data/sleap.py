@@ -150,18 +150,18 @@ def triangulate_frames(
 
 
 def write_points3d_h5(path: str, points3d: np.ndarray, metadata: Optional[Dict] = None):
-    import h5py
+    from smilify_tpu_torch.utils import hdf5_io
 
-    with h5py.File(path, "w") as f:
+    with hdf5_io.File(path, "w") as f:
         f.create_dataset("points3d", data=points3d.astype(np.float64))
         for k, v in (metadata or {}).items():
             f.attrs[k] = v
 
 
 def read_points3d_h5(path: str) -> np.ndarray:
-    import h5py
+    from smilify_tpu_torch.utils import hdf5_io
 
-    with h5py.File(path, "r") as f:
+    with hdf5_io.File(path, "r") as f:
         return f["points3d"][:]
 
 

@@ -20,12 +20,12 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from smilify_tpu_torch.utils import hdf5_io
+
 
 def read_sleap_analysis_h5(path: str, track: int = 0):
     """Analysis-HDF5 export → (points (F, K, 2), scores (F, K), node_names)."""
-    import h5py
-
-    with h5py.File(path, "r") as f:
+    with hdf5_io.File(path, "r") as f:
         tracks = f["tracks"][:]  # (n_tracks, 2, n_nodes, n_frames)
         node_names = [n.decode() if isinstance(n, bytes) else str(n) for n in f["node_names"][:]]
         scores = f["point_scores"][:] if "point_scores" in f else None
@@ -50,10 +50,9 @@ def read_slp(path: str, instance: int = 0):
     n-th instance within each frame (0 = first, matching the reference's
     single-subject sessions; multi-animal sessions pick others).
     """
-    import h5py
     import json
 
-    with h5py.File(path, "r") as f:
+    with hdf5_io.File(path, "r") as f:
         meta = json.loads(f["metadata"].attrs["json"]) if "metadata" in f else {}
         skel = (meta.get("skeletons") or [{}])[0]
         node_ids = [n.get("id") for n in skel.get("nodes", [])]
@@ -205,18 +204,17 @@ def read_skeleton(path: str) -> Tuple[List[str], List[Tuple[int, int]]]:
     stores the skeleton in the JSON metadata (links between node ids) —
     the reference extracts both (root ``sleap_data_loader.py`` skeleton
     handling)."""
-    import h5py
     import json
 
     if not path.endswith(".slp"):
-        with h5py.File(path, "r") as f:
+        with hdf5_io.File(path, "r") as f:
             names = [n.decode() if isinstance(n, bytes) else str(n) for n in f["node_names"][:]]
             edges = []
             if "edge_inds" in f:
                 edges = [(int(a), int(b)) for a, b in f["edge_inds"][:]]
             return names, edges
 
-    with h5py.File(path, "r") as f:
+    with hdf5_io.File(path, "r") as f:
         meta = json.loads(f["metadata"].attrs["json"]) if "metadata" in f else {}
     skel = (meta.get("skeletons") or [{}])[0]
     node_ids = [n.get("id") for n in skel.get("nodes", [])]

@@ -12,7 +12,8 @@ exactly reachable.
 forward over sample chunks, then one exact raster launch — kernel K1 on the
 card — of a whole chunk for each camera) and returns them as numpy sample
 dicts; :func:`generate_synthetic_multiview` writes them to the multi-view
-HDF5 (h5py and OpenCV, imported there), as the JAX package's function does.
+HDF5 (the port's codec, ``utils/hdf5_io.py``, and OpenCV), as the JAX
+package's function does.
 """
 
 from __future__ import annotations
@@ -218,7 +219,7 @@ def generate_synthetic_multiview(
     device="cuda",
 ):
     """:func:`synthesize_multiview`, written to the multi-view HDF5 at
-    ``out_path`` (needs h5py and OpenCV); returns ``out_path``."""
+    ``out_path`` (JPEG images through OpenCV); returns ``out_path``."""
     from smilify_tpu_torch.data.hdf5_dataset import write_multiview_hdf5
 
     samples = synthesize_multiview(

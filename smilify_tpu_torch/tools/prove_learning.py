@@ -10,7 +10,7 @@ gates. The data: ``data/synthetic.py::synthesize_multiview`` samples of
 ``toy_model_spec(55, 55, 5)`` (SMILy_STICK's width; the model pickle is not in
 the repository), written as a model pickle that the trainer loads. The
 samples are held in memory in the multi-view HDF5 schema, JPEG images
-included (``data/hdf5_dataset.py::multiview_store``: no h5py needed), trained
+included (``data/hdf5_dataset.py::multiview_store``), trained
 from ``train/trainer.py::DeviceDataCache`` by the trainer CLIs
 (``cli/train_regressor.py``, ``cli/train_multiview.py``) and scored by
 ``cli/benchmark_model.py`` (``train/benchmark.py``'s PCK at input

@@ -12,7 +12,11 @@ and registration CLIs take are not in the repository; the CPU tests and
     spec; or the same frames in replicAnt's per-frame (Unreal) layout, which
     the regressors' CLIs read;
   * :func:`posed_target_meshes` — posed and scaled copies of a spec, the
-    registration's target scans.
+    registration's target scans;
+  * :func:`write_sleap_session` — a SLEAP session: per camera an MJPG video
+    (OpenCV) and the 2D predictions as an analysis-HDF5 export (the first
+    camera) or a native ``.slp`` table (the others), written by the port's
+    HDF5 codec, and an anipose calibration.
 """
 
 from __future__ import annotations
@@ -201,3 +205,96 @@ def _write_unreal_sequence(root: str, spec: ModelSpec, n_frames: int, size: int,
         write_png(stem + "_ID.png", np.repeat(mask[..., None], 3, axis=-1))
         names.append(os.path.basename(stem) + ".json")
     return folder, names
+
+
+SLEAP_NODES = ("Head", "Thorax", "tail_tip", "extra")
+
+
+def sleap_calibrations(n: int, size: Tuple[int, int] = (64, 48), distort: bool = True):
+    """``n`` cameras on a ring around the origin, 3 m away, for images of
+    ``size`` (W, H), made from a seed."""
+    from smilify_tpu_torch.data.sleap import CameraCalibration
+
+    rng = np.random.default_rng(10)
+    W, H = size
+    return [CameraCalibration(
+        name=f"cam{i}", size=(W, H),
+        matrix=np.array([[(80.0 + i) * W / 64, 0, W / 2], [0, 82.0 * H / 48, H / 2], [0, 0, 1]]),
+        distortions=np.array([0.01 * distort, -0.002 * distort, 0, 0, 0]),
+        rotation=np.array([0.0, 0.5 * i, 0.05 * i]),
+        translation=np.array([0.1 * i, 0.0, 3.0]) + rng.normal(0, 0.01, 3)) for i in range(n)]
+
+
+def _write_sleap_video(path: str, n_frames: int, size: Tuple[int, int]) -> None:
+    import cv2
+
+    W, H = size
+    vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), 10, (W, H))
+    for i in range(n_frames):
+        img = np.zeros((H, W, 3), np.uint8)
+        x = 4 + 5 * i % max(W - 16, 1)
+        img[10:26, x:x + 12] = (255, 180, 60)
+        vw.write(img)
+    vw.release()
+
+
+def _write_slp(path: str, pts: np.ndarray, scores: np.ndarray, nodes) -> None:
+    """A native ``.slp`` table: two instances a frame (the readers take the
+    first), the skeleton in the JSON metadata attribute."""
+    from smilify_tpu_torch.utils import hdf5_io
+
+    F, K, _ = pts.shape
+    meta = {"skeletons": [{"nodes": [{"id": 10 + k} for k in range(K)],
+                           "links": [{"source": 10, "target": 11}, {"source": 11, "target": 12}]}],
+            "nodes": [{"id": 10 + k, "name": n} for k, n in enumerate(nodes)]}
+    frames = np.zeros(F, [("frame_id", "<i8")])
+    frames["frame_id"] = np.arange(F)
+    inst = np.zeros(2 * F, [("frame_id", "<i8"), ("point_id_start", "<i8"), ("point_id_end", "<i8")])
+    table = np.zeros(2 * F * K, [("x", "<f8"), ("y", "<f8"), ("score", "<f8")])
+    for f in range(F):
+        for i in range(2):
+            n = 2 * f + i
+            inst[n] = (f, n * K, (n + 1) * K)
+            table["x"][n * K:(n + 1) * K] = pts[f, :, 0] + 100 * i
+            table["y"][n * K:(n + 1) * K] = pts[f, :, 1]
+            table["score"][n * K:(n + 1) * K] = scores[f]
+    with hdf5_io.File(path, "w") as h:
+        h.create_group("metadata").attrs["json"] = json.dumps(meta)
+        h["frames"], h["instances"], h["pred_points"] = frames, inst, table
+
+
+def write_sleap_session(root: str, n_frames: int = 5, cams=("cam0", "cam1"),
+                        consistent: bool = False, size: Tuple[int, int] = (64, 48),
+                        nodes=SLEAP_NODES) -> str:
+    """A SLEAP session in ``root``: per camera an MJPG video of ``size``
+    (W, H) and the 2D predictions of ``nodes`` (the first camera's as an
+    analysis-HDF5 export, the others' as native ``.slp`` tables), plus
+    ``calibration.toml``. The predictions are random, or (``consistent``)
+    the calibrated projections of random 3D points with 0.3 px of noise;
+    frame 1's first two nodes are missing (NaN). Returns ``root``."""
+    from smilify_tpu_torch.data.sleap import save_calibration_toml
+    from smilify_tpu_torch.utils import hdf5_io
+
+    rng = np.random.default_rng(12)
+    os.makedirs(root, exist_ok=True)
+    cals = sleap_calibrations(len(cams), size)
+    K = len(nodes)
+    pts3d = rng.uniform(-0.3, 0.3, (n_frames, K, 3))
+    for ci, cam in enumerate(cams):
+        _write_sleap_video(os.path.join(root, f"{cam}.avi"), n_frames, size)
+        if consistent:
+            pts = np.stack([cals[ci].project(p) for p in pts3d]) + rng.normal(0, 0.3, (n_frames, K, 2))
+        else:
+            pts = rng.uniform(2, min(size) - 2, (n_frames, K, 2))
+        pts[1, :2] = np.nan
+        sc = rng.uniform(0.1, 1.0, (n_frames, K)).astype(np.float32)
+        if ci == 0:
+            with hdf5_io.File(os.path.join(root, f"{cam}.analysis.h5"), "w") as f:
+                f["tracks"] = np.transpose(pts, (2, 1, 0))[None]
+                f["point_scores"] = sc.T[None]
+                f["node_names"] = np.asarray([n.encode() for n in nodes])
+                f["edge_inds"] = np.asarray([[0, 1], [1, 2]])
+        else:
+            _write_slp(os.path.join(root, f"{cam}.slp"), pts, sc, nodes)
+    save_calibration_toml(os.path.join(root, "calibration.toml"), cals)
+    return root

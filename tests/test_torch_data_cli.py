@@ -57,16 +57,28 @@ def model(tmp_path_factory):
     return path, list(load_model_spec(path, align_symmetry=False, device="cpu").joint_names)
 
 
+def _h5_type(dtype, shape):
+    """A dataset's or attribute's type as h5py reports it: the numpy dtype,
+    the shape, the string encoding and length, the variable-length base."""
+    return dtype, shape, h5py.check_string_dtype(dtype), h5py.check_vlen_dtype(dtype)
+
+
 def _read_h5(path):
     out = {}
 
     def visit(name, obj):
+        types = {}
         if isinstance(obj, h5py.Dataset):
             data = obj[()]
             if obj.dtype.kind == "O" and obj.dtype != h5py.string_dtype():
                 data = [np.asarray(x) for x in data]
             out[name] = data
+            types[""] = _h5_type(obj.dtype, obj.shape)
         out[name + "@attrs"] = {k: np.asarray(v) for k, v in obj.attrs.items()}
+        for k in obj.attrs:
+            aid = obj.attrs.get_id(k)
+            types[k] = _h5_type(aid.dtype, aid.shape)
+        out[name + "@type"] = types
 
     with h5py.File(path, "r") as f:
         f.visititems(visit)
@@ -75,12 +87,15 @@ def _read_h5(path):
 
 def assert_same_h5(got_path, want_path):
     """Two HDF5 files hold the same groups, arrays (the JPEG bytes
-    included) and attributes."""
+    included) and attributes, each of the same type and shape as h5py
+    reports them."""
     got, want = _read_h5(got_path), _read_h5(want_path)
     assert got.keys() == want.keys()
     for k in want:
         g, w = got[k], want[k]
-        if k.endswith("@attrs"):
+        if k.endswith("@type"):
+            assert g == w, k
+        elif k.endswith("@attrs"):
             assert g.keys() == w.keys(), k
             for a in w:
                 np.testing.assert_array_equal(g[a], w[a], err_msg=f"{k} {a}")
@@ -183,6 +198,8 @@ def test_sleap_tools_match_jax(tmp_path):
         for k in want:
             if k.endswith("@attrs"):
                 assert got[k].keys() == want[k].keys()
+            elif k.endswith("@type"):
+                assert got[k] == want[k], k
             else:
                 np.testing.assert_allclose(got[k], want[k], rtol=1e-9, atol=1e-12, err_msg=k)
     for a, b in zip(jsl.load_calibration_toml(str(t / "cal.toml")),

@@ -4,6 +4,8 @@
   ``chip_smoke.py`` imports JAX, Flax, Optax or anything of the JAX package
   ``smilify_tpu`` (importing any of its modules runs its ``__init__``,
   which imports JAX).
+* None of them imports h5py, inside functions either: the card's machine
+  has none, and HDF5 files go through the port's codec.
 * At module level they import only what the card's machine has: the
   standard library, numpy, scipy, torch and the port itself (imageio, cv2,
   matplotlib and yaml only inside the functions that the card never calls).
@@ -29,6 +31,8 @@ import torch
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "smilify_tpu")
+# not on the card's machine: HDF5 goes through the port's codec (utils/hdf5_io.py)
+NOT_ON_CARD = ("h5py",)
 # what the card's machine has, besides the standard library
 CARD_PACKAGES = {"numpy", "scipy", "torch", "smilify_tpu_torch"}
 
@@ -141,6 +145,22 @@ def test_scan_sees_a_forbidden_import(tmp_path):
     p.write_text("import os\nfrom smilify_tpu.core import spec\n"
                  "def f():\n    import jax.numpy as jnp\n")
     assert {"smilify_tpu", "jax"} <= set(_imported_roots(p))
+
+
+def test_port_imports_no_h5py():
+    """No file of the port, and not chip_smoke.py, imports h5py, inside
+    functions either."""
+    bad = [(f.relative_to(REPO).as_posix(), root) for f in _port_files()
+           for root in _imported_roots(f) if root in NOT_ON_CARD]
+    assert bad == []
+
+
+def test_scan_sees_h5py_in_a_function(tmp_path):
+    p = tmp_path / "m.py"
+    p.write_text("import numpy as np\n"
+                 "def read(path):\n    import h5py\n    return h5py.File(path)\n")
+    assert set(_imported_roots(p)) & set(NOT_ON_CARD) == {"h5py"}
+    assert set(_module_level_roots(p)) & set(NOT_ON_CARD) == set()
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
