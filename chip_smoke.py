@@ -109,7 +109,23 @@ J=55, B=5, made from a seed) and checks their results:
     a single-view store, ``cli.train_regressor`` from it and
     ``cli.run_inference`` on it; a SLEAP session written by
     ``tools.synthetic_data.write_sleap_session`` (3 cameras, 24 frames)
-    through ``cli.preprocess_sleap_multiview``.
+    through ``cli.preprocess_sleap_multiview``;
+  * slice 10 (phase 17), what the JAX package needs PyYAML and
+    matplotlib for, without either: ``python -m smilify_tpu_torch.cli.optimise_3d`` in a
+    process of its own on phase 9's 8 scans in two batches, from a YAML
+    stage file (comments, two stages of 20 steps, a flow ``loss_weights``,
+    ``custom_lrs``, ``args``) read by the port's reader
+    (``utils/yaml_io.py``), its merged npz bitwise equal to ``register``
+    given the same stages in this process, its loss plots at their sizes;
+    the fixtures of ``tests/fixtures/plots`` (PyYAML's values, matplotlib's
+    polygon masks, axis limits and 3D projections, its viridis table) met
+    with 0 keys apart; a COCO file of polygon segmentations through
+    ``data.loaders.load_smil_sequence(alt_seg=False)``, 0 pixels from
+    matplotlib's masks; and every plot site's files (``utils/plotting.py``)
+    at the JAX package's pixel sizes: the trainers' history and 3D-keypoint
+    plots of phases 12 and 16, ``benchmark_model``'s two of phase 16, the
+    three ``utils.visualization`` plots on (a)'s registration and
+    ``cli.plot_pca_data`` on phase 14's CSV.
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after. Imports nothing of JAX or of the JAX package ``smilify_tpu``.
@@ -3521,6 +3537,202 @@ def hdf5_phase(toy, dev, card, samples, phase10_path):
     return out
 
 
+# phase 17, slice 10 on the card: the registration CLI from a YAML file, the
+# polygon masks and the plots, without PyYAML or matplotlib (the port imports
+# neither; the card's machine has no matplotlib). optimise_3d runs phase 9's 8 scans in batches of 4,
+# so that it merges two batches' npz files, as register() does in-process
+REG_CLI_BATCH = 4
+STAGE_YAML = """\
+# two stages over phase 9's scans (read by smilify_tpu_torch/utils/yaml_io.py)
+stages:
+  init:                 # rigid and scale first
+    scheme: init
+    nits: 20
+    lr: 0.01
+    custom_lrs: {{global_rot: 0.02}}
+  default:
+    scheme: 'default'
+    nits: 20
+    lr: 5.0e-3          # a float: it has its dot
+    loss_weights: {{w_chamfer: 1.0, w_edge: 0.5, w_laplacian: 0.1}}
+    custom_lrs:
+      joint_rot: 0.002
+args: {{results_dir: "{results}"}}
+"""
+# the JAX package's files: (height, width) = int(figsize × dpi)
+TRAIN_PLOTS = {"training_history.png": (480, 840), "lr_schedule.png": (360, 840),
+               "loss_components.png": (480, 960), "ief_deltas.png": (480, 960)}
+BENCH_PLOTS = {"pck_curve.png": (480, 720), "error_histogram.png": (480, 720)}
+
+
+def _png_sizes(paths):
+    from smilify_tpu_torch.utils.image_io import read_png
+
+    return {Path(p).name: read_png(p).shape[:2] for p in paths}
+
+
+def yaml_cli(toy, dev, card, work):
+    """(a): optimise_3d from a YAML stage file, in a process of its own,
+    against register() with the same stages here: the merged npz bitwise,
+    both batches' loss plots at 640 × 480 and 800 × 300 a component."""
+    from smilify_tpu_torch.cli.optimise_3d import load_stages_from_yaml, register
+    from smilify_tpu_torch.core.spec import load_model_spec
+    from smilify_tpu_torch.fitter.fitter3d import Stage
+    from smilify_tpu_torch.tools.synthetic_data import write_model_pkl
+
+    scans = ROOT / "build" / "smoke_registration" / "scans"
+    paths = sorted(str(p) for p in scans.glob("*.obj"))
+    check(len(paths) == 8, f"phase 17: phase 9's scans {paths}")
+    pkl = write_model_pkl(str(work / "stick_width.pkl"), toy)
+    cfg = work / "stages.yaml"
+    cfg.write_text(STAGE_YAML.format(results=work / "cli"))
+    stages = [Stage("init", "init", n_its=20, lr=0.01, custom_lrs={"global_rot": 0.02}),
+              Stage("default", "default", n_its=20, lr=0.005,
+                    loss_weights={"chamfer": 1.0, "edge": 0.5, "laplacian": 0.1},
+                    custom_lrs={"joint_rot": 0.002})]
+    fields = ("name", "scheme", "n_its", "lr", "loss_weights", "custom_lrs")
+    parsed, yaml_args = load_stages_from_yaml(str(cfg))
+    same_stages = [[getattr(st, f) for f in fields] for st in parsed] == [
+        [getattr(st, f) for f in fields] for st in stages]
+    log(f"  the stage file read by the port's YAML reader: {len(parsed)} stages, "
+        f"{'the Stage objects built here' if same_stages else 'NOT the Stage objects built here'}; "
+        f"args {yaml_args}")
+    check(same_stages and yaml_args == {"results_dir": str(work / "cli")},
+          f"load_stages_from_yaml: {[vars(st) for st in parsed]}, {yaml_args}")
+
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "smilify_tpu_torch.cli.optimise_3d",
+                          "--model", pkl, "--mesh_dir", str(scans), "--yaml_src", str(cfg),
+                          "--batch_size", str(REG_CLI_BATCH), "--device", dev.type],
+                         cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)},
+                         capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    check(res.returncode == 0, f"optimise_3d exited {res.returncode}: {res.stderr[-3000:]}")
+    spec = load_model_spec(pkl, align_symmetry=False, device=dev)        # the CLI's loading
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    managers = register(spec, paths, stages, str(work / "inproc"), batch_size=REG_CLI_BATCH,
+                        num_samples=3000, chunk=10)
+    torch.cuda.synchronize()
+    reg_s = time.perf_counter() - t0
+    cli_npz, ref_npz = (np.load(work / d / "default.npz") for d in ("cli", "inproc"))
+    differ = sorted(set(cli_npz.files) ^ set(ref_npz.files)) + [
+        k for k in ref_npz.files if k in cli_npz.files and not (
+            cli_npz[k].dtype == ref_npz[k].dtype and np.array_equal(cli_npz[k], ref_npz[k]))]
+    log(f"  optimise_3d (a process of its own: start, imports, 2 batches × 4 scans × 2 × 20 "
+        f"steps, npz and plots) {cli_s:.2f} s; register() here on the same stages {reg_s:.2f} "
+        f"s ({card}); merged npz arrays that differ: {differ or 'none'} of {len(ref_npz.files)}")
+    check(not differ and ref_npz["verts"].shape == (8, toy.n_verts, 3),
+          f"optimise_3d's merged npz differs from register()'s: {differ}")
+    n_comp = len({k for st in managers[0].stages for h in st.loss_history for k in h})
+    sizes = {}
+    for b in range(2):
+        got = _png_sizes(sorted((work / "cli" / f"batch_{b}").glob("*.png")))
+        sizes[f"batch_{b}"] = got
+        check(got == {"losses.png": (480, 640), "loss_components.png": (300 * n_comp, 800)},
+              f"optimise_3d batch {b}: loss plots {got} ({n_comp} components)")
+    log(f"  loss plots (height, width): {sizes}")
+    return {"cli_seconds": cli_s, "register_seconds": reg_s, "npz_arrays_differ": differ,
+            "components": n_comp, "merged": str(work / "cli" / "default.npz")}
+
+
+def plot_sites(work, merged_npz, card):
+    """(d): every plot site's files at the JAX package's sizes: the trainers'
+    history and 3D-keypoint plots of phases 12 and 16, benchmark_model's
+    plots of phase 16, utils.visualization's three plots on (a)'s
+    registration, plot_pca_data on phase 14's CSV."""
+    from smilify_tpu_torch.cli import plot_pca_data
+    from smilify_tpu_torch.utils import visualization
+    from smilify_tpu_torch.utils.export import load_obj
+    from smilify_tpu_torch.utils.smil_tools_native import PCAMorphData
+
+    build = ROOT / "build"
+    runs = [build / "smoke_training" / "device_cache", build / "smoke_training" / "host_threads",
+            build / "smoke_hdf5" / "train_multiview"]
+    out = {}
+    for run in runs:
+        got = _png_sizes(sorted((run / "plots").glob("*.png")))
+        kp3d = _png_sizes(sorted(run.glob("visualizations*/*_kp3d.png")))
+        out[run.name] = {"plots": got, "kp3d": kp3d}
+        check(got == TRAIN_PLOTS, f"{run}: history plots {got}")
+        check(kp3d and set(kp3d.values()) == {(480, 480)}, f"{run}: 3D keypoint plots {kp3d}")
+    bench = _png_sizes(sorted((build / "smoke_hdf5" / "benchmark_file").glob("*.png")))
+    out["benchmark_model"] = bench
+    check(bench == BENCH_PLOTS, f"benchmark_model's plots {bench}")
+
+    reg = np.load(merged_npz)
+    verts, faces = reg["verts"][0], reg["faces"]
+    scan, _ = load_obj(str(build / "smoke_registration" / "scans" / "scan0.obj"))
+    tri = verts[faces]
+    area = 0.5 * np.linalg.norm(np.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0]), axis=1)
+    vis = work / "visualization"
+    vis.mkdir()
+    t0 = time.perf_counter()
+    visualization.plot_mesh(verts, faces, str(vis / "mesh.png"), title="registration 0")
+    visualization.plot_pointclouds([verts, scan], str(vis / "clouds.png"), labels=["fit", "scan"])
+    visualization.plot_mesh_heatmap(verts, faces, area, str(vis / "heatmap.png"), title="face area")
+    vis_s = time.perf_counter() - t0
+    got = _png_sizes(sorted(vis.glob("*.png")))
+    out["visualization"] = got
+    check(got == {n: (480, 480) for n in ("mesh.png", "clouds.png", "heatmap.png")},
+          f"visualization plots {got}")
+
+    csv = build / "smoke_tools" / "pca.csv"
+    morph = PCAMorphData(str(csv))
+    t0 = time.perf_counter()
+    plot_pca_data.main(["--csv", str(csv), "--out", str(work / "pca")])
+    pca_s = time.perf_counter() - t0
+    got = _png_sizes(sorted((work / "pca").glob("*.png")))
+    want = (720, int(max(8, morph.num_bones * 0.35) * 120))
+    out["plot_pca_data"] = got
+    check(len(got) == morph.num_components and set(got.values()) == {want},
+          f"plot_pca_data: {got}, want {morph.num_components} of {want}")
+    log(f"  plots (height, width), phases 12 and 16 and here: {json.dumps(out)}; the three "
+        f"visualization plots on a {len(faces)}-face registration in {vis_s:.2f} s, "
+        f"{morph.num_components} PCA plots in {pca_s:.2f} s ({card})")
+    return out
+
+
+def slice10_phase(toy, dev, card):
+    """Phase 17: (a) the registration CLI from a YAML file (yaml_cli); (b)
+    the YAML, mask, limit and projection fixtures; (c) polygon masks
+    through load_smil_sequence; (d) the plot sites (plot_sites)."""
+    import importlib.util
+
+    from smilify_tpu_torch.data.loaders import load_smil_sequence
+    from smilify_tpu_torch.tools import plot_fixtures
+
+    work = ROOT / "build" / "smoke_slice10"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    absent = [m for m in ("yaml", "matplotlib", "mpl_toolkits") if importlib.util.find_spec(m) is None]
+    log(f"  not installed on this machine: {absent}")
+    out = {"cli": yaml_cli(toy, dev, card, work)}
+
+    t0 = time.perf_counter()
+    bad = plot_fixtures.check()
+    fixture_s = time.perf_counter() - t0
+    want = plot_fixtures.load()
+    log(f"  fixtures (tests/fixtures/plots): {len(want['yaml'])} YAML documents, "
+        f"{sum(k.startswith('mask/') for k in want['arrays'])} polygon masks, "
+        f"{sum(k.startswith('limits/') for k in want['arrays'])} 2D and "
+        f"{sum(k.startswith('proj/') for k in want['arrays'])} 3D axes, the viridis table, "
+        f"in {fixture_s:.2f} s; keys apart: {bad}")
+    check(not any(bad.values()), f"plot fixtures: keys apart {bad}")
+
+    coco, frames = plot_fixtures.write_polygon_coco(str(work / "polygons"))
+    apart = {}
+    for frame, case in frames.items():
+        (_, sil, _, _), _ = load_smil_sequence(coco, frame, 32, ["a", "b"], alt_seg=False)
+        apart[case] = int(((sil[0] > 0) != want["arrays"][f"mask/{case}"]).sum())
+    log(f"  load_smil_sequence(alt_seg=False) on {len(frames)} polygon frames: pixels apart "
+        f"from matplotlib's masks {apart}")
+    check(not any(apart.values()), f"polygon masks through load_smil_sequence: {apart}")
+    out["fixtures"] = {"keys_apart": bad, "seconds": fixture_s, "polygon_pixels_apart": apart}
+    out["plots"] = plot_sites(work, out["cli"]["merged"], card)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs an NVIDIA GPU")
@@ -3543,7 +3755,7 @@ def main():
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
 
-    log("[1/16] build")
+    log("[1/17] build")
     t0 = time.perf_counter()
     libs = _kernels.build_all()
     log(f"  built {', '.join(p.name for p in libs.values())} in {time.perf_counter() - t0:.1f} s")
@@ -3563,7 +3775,7 @@ def main():
     spec, spec_name = load_spec(device=dev)
     log(f"  spec: {spec_name}, B={spec.n_betas}")
 
-    log("[2/16] kernels against their plain versions at the driven paths' shapes")
+    log("[2/17] kernels against their plain versions at the driven paths' shapes")
     shape = source_constants(RASTER_CU.read_text(), FWD_SHAPE + BWD_SHAPE)
     log(f"  launch shapes (csrc/raster.cu): {shape}")
     raster = ("exact_fwd", "exact_bwd", "worklist_fwd", "worklist_bwd")
@@ -3582,7 +3794,7 @@ def main():
     for n_frames, size in ((1, SIZE),) + shapes:
         kernel_phase(spec, n_frames, size, dev, saturating=True)
     records.append(peak_phase(dev))
-    log("[3/16] main path: SmalFitter, 4 stages × 10 steps, 1 frame at 512²")
+    log("[3/17] main path: SmalFitter, 4 stages × 10 steps, 1 frame at 512²")
     data = synthetic_fit_data(spec, 1, SIZE)
     cover = float(data.sil.mean())
     log(f"  target silhouette covers {cover:.4f} of the image")
@@ -3627,41 +3839,41 @@ def main():
     log(f"  IoU of capped (cap {cap}) against exact on the exact fit's pose: {iou_cap:.4f}")
     check(iou_cap >= 0.99, "capped raster IoU against exact below 0.99")
 
-    log("[4/16] references")
+    log("[4/17] references")
     reference_phase(spec, dev)
 
-    log("[5/16] where the time goes: 1 and 10 frames")
+    log("[5/17] where the time goes: 1 and 10 frames")
     data10 = synthetic_fit_data(spec, 10, SIZE)
     for frames, d in ((1, data), (10, data10)):
         for mode, (mode_cap, _) in modes.items():
             profile_phase(spec, d, dev, f"{mode}, {frames} frame(s),", mode_cap)
 
-    log("[6/16] bench path: bench, bench_all configs 1, 3, 3b, 3c (short windows)")
+    log("[6/17] bench path: bench, bench_all configs 1, 3, 3b, 3c (short windows)")
     bench_counts = bench_phase(spec, spec_name, dev)
     records[4]["launches"] = bench_counts["fma_peak"]
 
-    log("[7/16] batched and progressive fitters, bench_corpus")
+    log("[7/17] batched and progressive fitters, bench_corpus")
     batched_phase(spec, spec_name, dev)
 
-    log("[8/16] fitter CLIs: optimize_to_joints (capped, exact, texture), optimize_corpus at 512²; "
+    log("[8/17] fitter CLIs: optimize_to_joints (capped, exact, texture), optimize_corpus at 512²; "
         "the JPEG fixtures; optimize_to_joints on a JPEG frame, card and CPU")
     t0 = time.perf_counter()
     cli = cli_phase(spec, dev, card)
     log(f"  phase 8: {time.perf_counter() - t0:.1f} s")
     log("cli " + json.dumps(cli))
 
-    log("[9/16] 3D registration: 8 targets, 2 stages, twice (bitwise equal); bench_all config2")
+    log("[9/17] 3D registration: 8 targets, 2 stages, twice (bitwise equal); bench_all config2")
     t0 = time.perf_counter()
     registration_phase(spec, dev, card)
     log(f"  phase 9: {time.perf_counter() - t0:.1f} s")
 
-    log("[10/16] data pipeline: synthesize_multiview (1,600 samples, 4 views at 96²), "
+    log("[10/17] data pipeline: synthesize_multiview (1,600 samples, 4 views at 96²), "
         "DeviceDataCache, HDF5")
     t0 = time.perf_counter()
     records[0]["data_pipeline"], data_samples, data_store = data_phase(spec, dev, card)
     log(f"  phase 10: {time.perf_counter() - t0:.1f} s")
 
-    log("[11/16] neural serving: configs 4/5a card vs CPU, run_inference, multi-view serving, "
+    log("[11/17] neural serving: configs 4/5a card vs CPU, run_inference, multi-view serving, "
         "bench_all configs 4/5a/5b, config 4's profile")
     t0 = time.perf_counter()
     serving = serving_phase(spec, dev, card)
@@ -3669,7 +3881,7 @@ def main():
     records[0]["serving_data"] = serving["multiview_data"]["k1"]
     log("serving " + json.dumps(serving))
 
-    log("[12/16] training: bench_all configs 4b/4c/5c and 4b's profile, one float32 step card "
+    log("[12/17] training: bench_all configs 4b/4c/5c and 4b's profile, one float32 step card "
         "vs CPU, a learning check from DeviceDataCache, train_regressor (cache and host "
         "pipeline) then run_inference, train_pointnet, the input-pipeline bench")
     t0 = time.perf_counter()
@@ -3678,7 +3890,7 @@ def main():
     records[0]["training_data_launches"] = training["learning"]["k1_launches"]
     log("training " + json.dumps(training, default=float))
 
-    log("[13/16] slice 5: serving export (configs 4/5a, a fresh process, B=1/8/128); the "
+    log("[13/17] slice 5: serving export (configs 4/5a, a fresh process, B=1/8/128); the "
         "sharded fitters and config 4b's data-parallel step on 1 rank over NCCL and on 2 ranks "
         "of the card over gloo")
     t0 = time.perf_counter()
@@ -3693,7 +3905,7 @@ def main():
             for key, run in scale.items() for r in run["ranks"]}
     log("scaleout " + json.dumps({"export": export, "scaleout": scale}, default=float))
 
-    log("[14/16] slice 6, the tools: generate_video and run_inference --video; the OpenCV paths "
+    log("[14/17] slice 6, the tools: generate_video and run_inference --video; the OpenCV paths "
         "(raw video, an augmented epoch, blur, warps, undistortion); authoring from "
         "phase 9's registration (K1 once on the authored model), the native PCA loader, "
         "prepare_meshes; export_gltf on phase 11's animation; monitoring")
@@ -3704,7 +3916,7 @@ def main():
     records[0]["authoring_launches"] = tools["authoring"]["k1_launches"]
     log("tools " + json.dumps(tools, default=float))
 
-    log("[15/16] the learning proofs: memorize, single- and multi-view, the JAX gates; a toy "
+    log("[15/17] the learning proofs: memorize, single- and multi-view, the JAX gates; a toy "
         "heldout in two resumed calls")
     t0 = time.perf_counter()
     learning = learning_phase(dev, card)
@@ -3712,7 +3924,7 @@ def main():
     records[0]["learning_launches"] = {m: r["launches"]["exact_fwd"] for m, r in learning.items()}
     log("learning " + json.dumps(learning, default=float))
 
-    log("[16/16] the HDF5 stores (the port's codec): the fixtures; phase 10's store by "
+    log("[16/17] the HDF5 stores (the port's codec): the fixtures; phase 10's store by "
         "generate_synthetic_multiview (K1); train_multiview, benchmark_model and "
         "dataset_viewer on it; preprocess_replicant, train_regressor and run_inference on a "
         "single-view store; a SLEAP session through preprocess_sleap_multiview")
@@ -3722,6 +3934,14 @@ def main():
     log(f"  phase 16: {time.perf_counter() - t0:.1f} s")
     records[0]["hdf5_launches"] = hdf5["synthetic"]["launches"]
     log("hdf5 " + json.dumps(hdf5, default=float))
+
+    log("[17/17] slice 10: optimise_3d from a YAML stage file (a process of its own) against "
+        "register(); the YAML, polygon, limit and projection fixtures; polygon masks through "
+        "load_smil_sequence; every plot site's files at the JAX sizes")
+    t0 = time.perf_counter()
+    slice10 = slice10_phase(spec, dev, card)
+    log(f"  phase 17: {time.perf_counter() - t0:.1f} s")
+    log("slice10 " + json.dumps(slice10, default=float))
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}), flush=True)

@@ -2,8 +2,8 @@
 
 Detects single/multi-view from the checkpoint's config, evaluates PCK@1..50px
 at input resolution and MPJPE (mm) where the data has 3D ground truth, and
-writes benchmark_report.txt, the raw .npy error arrays and, where matplotlib
-imports, the PCK curve and error histogram. ``--split`` evaluates one side of
+writes benchmark_report.txt, the raw .npy error arrays, the PCK curve and
+the error histogram (``utils/plotting.py``). ``--split`` evaluates one side of
 the trainer's seeded split (the same split functions, seed and ratios give
 the same held-out indices). A single-view model on a multi-view store reads
 every view as an item.

@@ -3,16 +3,15 @@ reference ``python -m fitter_3d.optimise``, fitter_3d/optimise.py:183-325).
 
 YAML-configured stages fit the SMIL template to a directory of target ``.obj``
 scans, optionally split into batches; per-batch results are saved as
-``.npz`` (plus loss plots where matplotlib is installed) and batch results
+``.npz`` with its two loss plots (``utils/plotting.py``) and batch results
 merged.
 
 Usage:
   python -m smilify_tpu_torch.cli.optimise_3d --model <pkl> --mesh_dir <dir> \\
       --yaml_src cfg.yaml [--results_dir out] [--batch_size 100] [--device cuda]
 
-The YAML file is read with PyYAML, imported when the file is parsed; where
-it is absent (the card's machine) build the stages in Python and call
-:func:`register`.
+The YAML file is read by the port's own reader (``utils/yaml_io.py``: what
+``yaml.safe_load`` returns for the stage files, without PyYAML).
 
 ``--shard`` cuts each batch's scans over the ranks of the process group
 (launch under torchrun; :class:`~smilify_tpu_torch.fitter.fitter3d.ShardedStageManager`):
@@ -34,13 +33,12 @@ import torch
 
 def load_stages_from_yaml(path: str):
     """Parse the reference YAML schema (stages.*.scheme/nits/lr/loss_weights
-    w_<name>/custom_lrs, plus optional top-level args overrides). Needs PyYAML."""
-    import yaml
-
+    w_<name>/custom_lrs, plus optional top-level args overrides)."""
     from smilify_tpu_torch.fitter.fitter3d import Stage
+    from smilify_tpu_torch.utils.yaml_io import safe_load
 
     with open(path) as f:
-        cfg = yaml.safe_load(f)
+        cfg = safe_load(f)
 
     stages = []
     for name, sc in cfg.get("stages", {}).items():
@@ -78,17 +76,6 @@ def combine_stage_results(results_dir: str, stage_name: str, n_batches: int):
     out = os.path.join(results_dir, f"{stage_name}.npz")
     np.savez(out, **merged)
     return out
-
-
-def _plot(mgr, out_dir: str) -> None:
-    """The loss plots where matplotlib is installed (the card's machine lacks it)."""
-    try:
-        import matplotlib  # noqa: F401
-    except ImportError:
-        print("matplotlib is not installed: no loss plots")
-        return
-    mgr.plot_losses(out_dir)
-    mgr.plot_loss_components(out_dir)
 
 
 def register(spec, obj_paths: List[str], stages, results_dir: str, batch_size: int = 100,
@@ -144,7 +131,8 @@ def register(spec, obj_paths: List[str], stages, results_dir: str, batch_size: i
         elif is_primary():
             out = mgr.save_npz(out_dir, final_stage)
         if is_primary():
-            _plot(mgr, out_dir)
+            mgr.plot_losses(out_dir)
+            mgr.plot_loss_components(out_dir)
             print(f"batch {b}: saved {out}")
         managers.append(mgr)
 

@@ -4,8 +4,8 @@
 components exported by the authoring tools (the replicAnt plugin's CSV
 schema), read through the native loader (``utils/smil_tools_native.py``).
 
-Host only, and it needs matplotlib, which the card's machine does not have:
-there it stops with an ImportError that says so.
+Host only; the plots are drawn by ``utils/plotting.py`` (numpy and OpenCV),
+at the JAX CLI's file names and sizes.
 
 Usage:
   python -m smilify_tpu_torch.cli.plot_pca_data --csv pca.csv [--out plots/]
@@ -20,22 +20,13 @@ import numpy as np
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(description="PCA morph-data CSV → per-component scatter plots",
-                                 epilog="Needs matplotlib (absent on the card's machine).")
+    ap = argparse.ArgumentParser(description="PCA morph-data CSV → per-component scatter plots")
     ap.add_argument("--csv", required=True)
     ap.add_argument("--out", default="pca_plots")
     ap.add_argument("--components", type=int, default=None, help="first N PCs to plot")
     args = ap.parse_args(argv)
 
-    try:
-        import matplotlib
-    except ImportError as e:
-        raise ImportError("plot_pca_data needs matplotlib, which this machine lacks; run it "
-                          "on a host that has it (the CSV is portable)") from e
-
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-
+    from smilify_tpu_torch.utils import plotting
     from smilify_tpu_torch.utils.smil_tools_native import PCAMorphData
 
     d = PCAMorphData(args.csv)
@@ -44,7 +35,7 @@ def main(argv=None):
     xs = np.arange(d.num_bones)
 
     for c in range(C):
-        fig, axes = plt.subplots(2, 1, figsize=(max(8, d.num_bones * 0.35), 6), sharex=True)
+        fig, axes = plotting.subplots(2, 1, figsize=(max(8, d.num_bones * 0.35), 6), sharex=True)
         for ax, data, title in (
             (axes[0], d.scaledirs[:, :, c], f"PC_{c+1} scale"),
             (axes[1], d.transdirs[:, :, c], f"PC_{c+1} translation"),
@@ -56,10 +47,8 @@ def main(argv=None):
             ax.legend(loc="upper right", fontsize=8)
         axes[1].set_xticks(xs)
         axes[1].set_xticklabels(d.bone_names, rotation=90, fontsize=7)
-        fig.tight_layout()
         path = os.path.join(args.out, f"pc_{c+1}.png")
         fig.savefig(path, dpi=120)
-        plt.close(fig)
         print(f"→ {path}")
 
 

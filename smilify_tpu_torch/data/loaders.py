@@ -15,8 +15,9 @@ Host-side numpy equivalents of the reference ``smal_fitter/data_loader.py``:
 Images are read by :func:`~smilify_tpu_torch.utils.image_io.read_image`
 (PNG without imageio; other formats need imageio) and resized by
 :func:`~smilify_tpu_torch.utils.image_io.resize` (cv2.resize's nearest and
-linear modes without OpenCV). The polygon masks (``alt_seg=False``) import
-matplotlib when used.
+linear modes without OpenCV). The polygon masks (``alt_seg=False``) are
+:func:`polygon_mask`'s: matplotlib's ``Path.contains_points`` bit for bit,
+in numpy.
 
 Outputs are channel-last float numpy arrays: rgb (N, H, W, 3) in [0, 1],
 sil (N, H, W), joints (N, K, 2) in (row, col), visibility (N, K).
@@ -25,6 +26,7 @@ sil (N, H, W), joints (N, K, 2) in (row, col), visibility (N, K).
 from __future__ import annotations
 
 import json
+import math
 import os
 from pathlib import Path
 from typing import Iterable, Optional, Sequence
@@ -63,6 +65,41 @@ def crop_to_silhouette(sil_img: np.ndarray, rgb_img: np.ndarray, joints: np.ndar
     return sil_r, rgb_r, scaled
 
 
+def polygon_mask(polygons: Sequence, height: int, width: int) -> np.ndarray:
+    """(height, width) bool: the pixels whose centres (x, y) = (column, row)
+    lie inside any of ``polygons`` (each a flat [x0, y0, x1, y1, ...] list,
+    COCO's segmentation), bit for bit what matplotlib's
+    ``Path(vertices).contains_points(pixels)`` answers with radius 0.
+
+    That is the crossing rule of matplotlib's ``_path.h::point_in_path_impl``
+    over the implicitly closed polygon (a path of fewer than 3 vertices holds
+    no point): a pixel flips for an edge (x0, y0) → (x1, y1) where
+    ``(y0 >= ty) != (y1 >= ty)`` and ``((y1 - ty) * (x0 - x1) >= (x1 - tx) *
+    (y0 - y1)) == (y1 >= ty)``, in float64 with those inequalities, so
+    pixel centres on an edge or a vertex fall as matplotlib's do. One edge
+    at a time over the rows it straddles, ``min(y0, y1) < ty <= max(y0,
+    y1)``, the only rows it can flip."""
+    out = np.zeros((height, width), dtype=bool)
+    tx = np.arange(width, dtype=np.float64)[None, :]
+    for poly in polygons:
+        v = np.asarray(poly, dtype=np.float64).reshape(-1, 2)
+        if len(v) < 3:
+            continue
+        if not np.isfinite(v).all():
+            raise ValueError("polygon_mask: non-finite polygon vertices")
+        inside = np.zeros((height, width), dtype=bool)
+        for (x0, y0), (x1, y1) in zip(v.tolist(), np.roll(v, -1, axis=0).tolist()):
+            r0 = max(0, math.floor(min(y0, y1)) + 1)
+            r1 = min(height - 1, math.floor(max(y0, y1)))
+            if r0 > r1:
+                continue
+            ty = np.arange(r0, r1 + 1, dtype=np.float64)[:, None]
+            below = y1 >= ty
+            inside[r0:r1 + 1] ^= ((y1 - ty) * (x0 - x1) >= (x1 - tx) * (y0 - y1)) == below
+        out |= inside
+    return out
+
+
 def load_smil_sequence(
     coco_dir: str,
     image_name: str,
@@ -96,16 +133,7 @@ def load_smil_sequence(
         mask_path = os.path.join(Path(img_dir).parent.parent, "SMIL", mask_name)
         seg = read_image(mask_path)[:, :, 0]
     else:
-        from matplotlib.path import Path as MplPath
-
-        h, w = entry["height"], entry["width"]
-        seg = np.zeros((h, w), dtype=np.uint8)
-        yy, xx = np.mgrid[0:h, 0:w]
-        pix = np.stack([xx.ravel(), yy.ravel()], axis=1)
-        for poly in ann["segmentation"]:
-            coords = np.asarray(poly).reshape(-1, 2)
-            inside = MplPath(coords).contains_points(pix).reshape(h, w)
-            seg[inside] = 1
+        seg = polygon_mask(ann["segmentation"], entry["height"], entry["width"]).astype(np.uint8)
 
     raw = np.asarray(ann["keypoints"], dtype=np.float64).reshape(-1, 3)
     kp_names = meta["categories"][0]["keypoints"]

@@ -369,13 +369,11 @@ class StageManager:
 
     def plot_losses(self, out_dir: str, name: str = "losses"):
         """Semilog total-loss curve across all stages on one axis
-        (reference StageManager.plot_losses, trainer.py:529-547). Needs
-        matplotlib."""
-        from smilify_tpu_torch.utils.visualization import _pyplot
+        (reference StageManager.plot_losses, trainer.py:529-547), 640×480."""
+        from smilify_tpu_torch.utils import plotting
 
-        plt = _pyplot()
         os.makedirs(out_dir, exist_ok=True)
-        fig, ax = plt.subplots()
+        fig, ax = plotting.subplots()
         it0 = 0
         for stage in self.stages:
             totals = [sum(h.values()) for h in stage.loss_history]
@@ -386,24 +384,21 @@ class StageManager:
         ax.set_ylabel("total loss")
         ax.legend()
         path = os.path.join(out_dir, f"{name}.png")
-        fig.tight_layout()
         fig.savefig(path)
-        plt.close(fig)
         return path
 
     def plot_loss_components(self, out_dir: str, name: str = "loss_components"):
         """Per-component semilog subplots across stages (reference
-        StageManager.plot_loss_components, trainer.py:549-583). Needs
-        matplotlib."""
-        from smilify_tpu_torch.utils.visualization import _pyplot
+        StageManager.plot_loss_components, trainer.py:549-583), 800 × 300
+        pixels a component."""
+        from smilify_tpu_torch.utils import plotting
 
-        plt = _pyplot()
         os.makedirs(out_dir, exist_ok=True)
         components = sorted({k for s in self.stages for h in s.loss_history for k in h})
         if not components:
             return None
-        fig, axes = plt.subplots(len(components), 1,
-                                 figsize=(8, 3 * len(components)), squeeze=False)
+        fig, axes = plotting.subplots(len(components), 1,
+                                      figsize=(8, 3 * len(components)), squeeze=False)
         for i, comp in enumerate(components):
             ax = axes[i][0]
             it0 = 0
@@ -415,9 +410,7 @@ class StageManager:
             ax.set_title(comp)
             ax.legend()
         path = os.path.join(out_dir, f"{name}.png")
-        fig.tight_layout()
         fig.savefig(path)
-        plt.close(fig)
         return path
 
     @torch.no_grad()

@@ -103,16 +103,11 @@ class BenchmarkAccumulator:
         return report
 
     def _plot(self, out_dir: str):
-        try:
-            import matplotlib
+        from smilify_tpu_torch.utils import plotting
 
-            matplotlib.use("Agg")
-            import matplotlib.pyplot as plt
-        except Exception:
-            return
         curve = self.pck_curve("input")
         if curve:
-            fig, ax = plt.subplots(figsize=(6, 4))
+            fig, ax = plotting.subplots(figsize=(6, 4))
             ts = sorted(curve)
             ax.plot(ts, [curve[t] for t in ts])
             ax.set_xlabel("threshold (px)")
@@ -120,14 +115,12 @@ class BenchmarkAccumulator:
             ax.set_title("PCK curve (input resolution)")
             ax.grid(True, alpha=0.3)
             fig.savefig(os.path.join(out_dir, "pck_curve.png"), dpi=120)
-            plt.close(fig)
         if self.pixel_errors_input:
-            fig, ax = plt.subplots(figsize=(6, 4))
+            fig, ax = plotting.subplots(figsize=(6, 4))
             ax.hist(np.concatenate(self.pixel_errors_input), bins=50)
             ax.set_xlabel("pixel error")
             ax.set_title("keypoint error histogram")
             fig.savefig(os.path.join(out_dir, "error_histogram.png"), dpi=120)
-            plt.close(fig)
 
 
 def detect_model_type_from_params(state_dict) -> str:

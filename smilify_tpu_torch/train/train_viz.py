@@ -4,8 +4,8 @@
   * collages of a few samples: the image with the ground-truth keypoints,
     with the predicted keypoints, the hard-Phong render of the predicted
     body overlaid, and the render alone (PNG through ``utils/image_io.py``);
-  * a scatter of predicted against ground-truth 3D keypoints (matplotlib,
-    where it imports);
+  * a scatter of predicted against ground-truth 3D keypoints
+    (``utils/plotting.py``);
   * the IEF head's health: the norms of its estimates' updates, iteration
     by iteration, and a PCK@5px on the visualization batch.
 
@@ -135,17 +135,12 @@ def render_epoch_collages(spec, preds: Dict, batch: Dict, image_size, out_dir: s
 
 
 def plot_3d_keypoints(pred_joints, gt_joints: Optional[np.ndarray], out_path: str,
-                      title: str = "3D keypoints") -> Optional[str]:
-    """Predicted (red) against ground-truth (green) 3D keypoints; returns
-    the path, or None where matplotlib does not import (the card's machine)."""
-    try:
-        import matplotlib
+                      title: str = "3D keypoints") -> str:
+    """Predicted (red) against ground-truth (green) 3D keypoints, 480×480;
+    returns the path."""
+    from smilify_tpu_torch.utils import plotting
 
-        matplotlib.use("Agg")
-        import matplotlib.pyplot as plt
-    except ImportError:
-        return None
-    fig = plt.figure(figsize=(6, 6))
+    fig = plotting.figure(figsize=(6, 6))
     ax = fig.add_subplot(projection="3d")
     p = _np(pred_joints)
     ax.scatter(p[:, 0], p[:, 1], p[:, 2], c="red", s=12, label="pred")
@@ -159,7 +154,6 @@ def plot_3d_keypoints(pred_joints, gt_joints: Optional[np.ndarray], out_path: st
     ax.legend()
     os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
     fig.savefig(out_path, dpi=80)
-    plt.close(fig)
     return out_path
 
 

@@ -786,23 +786,18 @@ def end_of_epoch_outputs(out_dir: str, state: TrainState, cfg, epoch: int,
 
 def plot_training_history(history: List[Dict[str, float]], out_dir: str):
     """Loss, learning-rate, loss-component and IEF-delta curves of
-    ``TrainState.history`` as PNG files; returns their paths, and nothing
-    where matplotlib does not import."""
-    if not history:
-        return []
-    try:
-        import matplotlib
+    ``TrainState.history`` as PNG files (``utils/plotting.py``, the JAX
+    package's files and sizes); returns their paths."""
+    from smilify_tpu_torch.utils import plotting
 
-        matplotlib.use("Agg")
-        import matplotlib.pyplot as plt
-    except Exception:
+    if not history:
         return []
     os.makedirs(out_dir, exist_ok=True)
     epochs = [h.get("epoch", i) for i, h in enumerate(history)]
     written = []
 
     def plot(name, curves, ylabel, title, figsize, log=True):
-        fig, ax = plt.subplots(figsize=figsize)
+        fig, ax = plotting.subplots(figsize=figsize)
         for label, values in curves:
             ax.plot(epochs, values, label=label)
         ax.set_xlabel("epoch")
@@ -816,7 +811,6 @@ def plot_training_history(history: List[Dict[str, float]], out_dir: str):
         ax.grid(alpha=0.3)
         p = os.path.join(out_dir, name)
         fig.savefig(p, dpi=120)
-        plt.close(fig)
         written.append(p)
 
     plot("training_history.png", [("loss", [h["loss"] for h in history])], "loss",

@@ -5,8 +5,8 @@ fitter_3d plots (port of ``smilify_tpu/utils/visualization.py``).
 has no OpenCV): at thickness 1 a star of size s is four 1-pixel lines of
 half-length s // 2 through the joint — horizontal, vertical and the two
 diagonals — clipped at the image border, pixel for pixel what
-``cv2.drawMarker`` draws. The plots import matplotlib when called; the
-card's machine lacks it, and no path run there calls them.
+``cv2.drawMarker`` draws. The fitter_3d plots draw through
+``utils/plotting.py`` (numpy and OpenCV, the JAX package's file sizes).
 """
 
 from __future__ import annotations
@@ -111,38 +111,29 @@ def pck(pred_yx, gt_yx, visibility, threshold_px: float) -> float:
 # ---------------------------------------------------------------------------
 
 
-def _pyplot():
-    import matplotlib
-
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-
-    return plt
-
-
 def plot_mesh(verts, faces, out_path: str, title: str = "", color="lightblue",
               elev: float = 20.0, azim: float = -60.0):
-    """Matplotlib trisurf plot of a mesh (reference plot_mesh)."""
-    plt = _pyplot()
+    """Shaded trisurf plot of a mesh (reference plot_mesh), 480×480."""
+    from smilify_tpu_torch.utils import plotting
+
     v = to_host(verts)
     f = to_host(faces)
-    fig = plt.figure(figsize=(6, 6))
+    fig = plotting.figure(figsize=(6, 6))
     ax = fig.add_subplot(projection="3d")
     ax.plot_trisurf(v[:, 0], v[:, 1], v[:, 2], triangles=f, color=color,
                     edgecolor="none", alpha=0.9)
     ax.view_init(elev=elev, azim=azim)
     ax.set_title(title)
     _equal_3d_axes(ax, v)
-    fig.tight_layout()
     fig.savefig(out_path, dpi=80)
-    plt.close(fig)
     return out_path
 
 
 def plot_pointclouds(clouds, out_path: str, labels=None, title: str = ""):
-    """Overlayed 3D scatter of point clouds (reference plot_pointcloud)."""
-    plt = _pyplot()
-    fig = plt.figure(figsize=(6, 6))
+    """Overlayed 3D scatter of point clouds (reference plot_pointcloud), 480×480."""
+    from smilify_tpu_torch.utils import plotting
+
+    fig = plotting.figure(figsize=(6, 6))
     ax = fig.add_subplot(projection="3d")
     allpts = []
     for i, c in enumerate(clouds):
@@ -153,34 +144,29 @@ def plot_pointclouds(clouds, out_path: str, labels=None, title: str = ""):
     ax.legend()
     ax.set_title(title)
     _equal_3d_axes(ax, np.concatenate(allpts))
-    fig.tight_layout()
     fig.savefig(out_path, dpi=80)
-    plt.close(fig)
     return out_path
 
 
 def plot_mesh_heatmap(verts, faces, face_values, out_path: str, title: str = "",
                       cmap: str = "viridis"):
-    """Per-face scalar heatmap on the mesh (reference thinness/error plots)."""
-    plt = _pyplot()
-    import matplotlib.cm as cm
-    from mpl_toolkits.mplot3d.art3d import Poly3DCollection
+    """Per-face scalar heatmap on the mesh (reference thinness/error plots),
+    480×480; the port keeps one colormap, viridis."""
+    from smilify_tpu_torch.utils import plotting
 
     v = to_host(verts)
     f = to_host(faces)
     vals = to_host(face_values).astype(np.float64)
     rng = vals.max() - vals.min()
     norm = (vals - vals.min()) / (rng if rng > 0 else 1.0)
-    colors = cm.get_cmap(cmap)(norm)
+    colors = plotting.colormap(cmap)(norm)
 
-    fig = plt.figure(figsize=(6, 6))
+    fig = plotting.figure(figsize=(6, 6))
     ax = fig.add_subplot(projection="3d")
-    ax.add_collection3d(Poly3DCollection(v[f], facecolors=colors, edgecolor="none"))
+    ax.add_polygons(v[f], facecolors=colors)
     ax.set_title(title)
     _equal_3d_axes(ax, v)
-    fig.tight_layout()
     fig.savefig(out_path, dpi=80)
-    plt.close(fig)
     return out_path
 
 

@@ -4,11 +4,16 @@
   ``chip_smoke.py`` imports JAX, Flax, Optax or anything of the JAX package
   ``smilify_tpu`` (importing any of its modules runs its ``__init__``,
   which imports JAX).
-* None of them imports h5py, inside functions either: the card's machine
-  has none, and HDF5 files go through the port's codec.
+* None of them imports h5py, matplotlib, mpl_toolkits or yaml, inside
+  functions either: the card's machine has no h5py or matplotlib, and the
+  port needs none of the four. HDF5 files go
+  through the port's codec (``utils/hdf5_io.py``), YAML stage files through
+  its reader (``utils/yaml_io.py``), polygon masks through
+  ``data/loaders.py::polygon_mask`` and plots through its OpenCV plotter
+  (``utils/plotting.py``).
 * At module level they import only what the card's machine has: the
-  standard library, numpy, scipy, torch and the port itself (imageio, cv2,
-  matplotlib and yaml only inside the functions that the card never calls).
+  standard library, numpy, scipy, torch and the port itself (imageio and
+  cv2 only inside functions).
 * An entry point given no device runs on ``cuda`` or raises; it never falls
   back to the CPU on its own.
 * Every module of the port imports, slice 6's (the last modules of the JAX
@@ -31,8 +36,10 @@ import torch
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "smilify_tpu")
-# not on the card's machine: HDF5 goes through the port's codec (utils/hdf5_io.py)
-NOT_ON_CARD = ("h5py",)
+# imported nowhere: HDF5 goes through the port's codec (utils/hdf5_io.py), YAML
+# through utils/yaml_io.py, plots and polygon masks through utils/plotting.py and
+# data/loaders.py::polygon_mask
+NOT_ON_CARD = ("h5py", "matplotlib", "mpl_toolkits", "yaml")
 # what the card's machine has, besides the standard library
 CARD_PACKAGES = {"numpy", "scipy", "torch", "smilify_tpu_torch"}
 
@@ -148,8 +155,8 @@ def test_scan_sees_a_forbidden_import(tmp_path):
 
 
 def test_port_imports_no_h5py():
-    """No file of the port, and not chip_smoke.py, imports h5py, inside
-    functions either."""
+    """No file of the port, and not chip_smoke.py, imports h5py, matplotlib,
+    mpl_toolkits or yaml, inside functions either."""
     bad = [(f.relative_to(REPO).as_posix(), root) for f in _port_files()
            for root in _imported_roots(f) if root in NOT_ON_CARD]
     assert bad == []
@@ -160,6 +167,16 @@ def test_scan_sees_h5py_in_a_function(tmp_path):
     p.write_text("import numpy as np\n"
                  "def read(path):\n    import h5py\n    return h5py.File(path)\n")
     assert set(_imported_roots(p)) & set(NOT_ON_CARD) == {"h5py"}
+    assert set(_module_level_roots(p)) & set(NOT_ON_CARD) == set()
+
+
+def test_scan_sees_matplotlib_and_yaml_in_functions(tmp_path):
+    p = tmp_path / "m.py"
+    p.write_text("import numpy as np\n"
+                 "def plot():\n    import matplotlib.pyplot as plt\n"
+                 "def mesh():\n    from mpl_toolkits.mplot3d.art3d import Poly3DCollection\n"
+                 "def stages(path):\n    import yaml\n    return yaml.safe_load(path)\n")
+    assert set(_imported_roots(p)) & set(NOT_ON_CARD) == {"matplotlib", "mpl_toolkits", "yaml"}
     assert set(_module_level_roots(p)) & set(NOT_ON_CARD) == set()
 
 

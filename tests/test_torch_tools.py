@@ -30,6 +30,7 @@ from smilify_tpu.utils import monitoring as jmon
 
 from smilify_tpu_torch.utils import mesh_prep as tmesh
 from smilify_tpu_torch.utils import monitoring as tmon
+from tests._torch_no_plotlibs import block_plot_libraries
 
 APPLY_TOL = 1e-6
 
@@ -269,20 +270,39 @@ def test_native_build_is_safe_to_start_at_once(tmp_path):
     assert [p.name for p in (tmp_path / "lib").iterdir()] == [outs[0][0].split()[1]]
 
 
-def test_plot_pca_data_matches_jax(tmp_path, capsys):
-    pytest.importorskip("matplotlib")
+def test_plot_pca_data_matches_jax(tmp_path, capsys, monkeypatch):
+    """The JAX CLI's files at their sizes, and each figure's axes limits as
+    the JAX CLI's matplotlib axes have them when saved (within 1e-12
+    relative); the port's drawn without matplotlib."""
+    pytest.importorskip("matplotlib")                # the JAX side draws with it
+    from matplotlib.figure import Figure as MplFigure
+
     from smilify_tpu.cli.plot_pca_data import main as j_plot
     from smilify_tpu_torch.cli.plot_pca_data import main as t_plot
+    from smilify_tpu_torch.utils import plotting
+    from smilify_tpu_torch.utils.image_io import read_png
+
+    limits = {"j": [], "t": []}
+
+    def recording(side, savefig):
+        def save(fig, *args, **kwargs):
+            limits[side].append([(ax.get_xlim(), ax.get_ylim()) for ax in fig.axes])
+            return savefig(fig, *args, **kwargs)
+        return save
 
     path, _, _ = _pca_csv(tmp_path)
+    monkeypatch.setattr(MplFigure, "savefig", recording("j", MplFigure.savefig))
     j_plot(["--csv", path, "--out", str(tmp_path / "j"), "--components", "2"])
+    block_plot_libraries(monkeypatch)
+    monkeypatch.setattr(plotting.Figure, "savefig", recording("t", plotting.Figure.savefig))
     t_plot(["--csv", path, "--out", str(tmp_path / "t"), "--components", "2"])
     assert sorted(os.listdir(tmp_path / "t")) == sorted(os.listdir(tmp_path / "j")) == [
         "pc_1.png", "pc_2.png"]
-    from smilify_tpu_torch.utils.image_io import read_png
-
     for name in os.listdir(tmp_path / "t"):
-        _equal(read_png(tmp_path / "t" / name), read_png(tmp_path / "j" / name))
+        assert read_png(tmp_path / "t" / name).shape == read_png(tmp_path / "j" / name).shape == (
+            720, 960, 4)
+    assert len(limits["t"]) == len(limits["j"]) == 2
+    np.testing.assert_allclose(limits["t"], limits["j"], rtol=1e-12, atol=0)
 
 
 def test_monitoring_on_the_cpu(tmp_path, monkeypatch):

@@ -37,13 +37,13 @@
   serial, thread and process modes, and its ``skip_errors`` backfill.
 * ``end_of_epoch_outputs``: the JAX package's checkpoint names and cadence;
   ``try_resume`` (with ``reset_ief_token_embedding``) and
-  ``plot_training_history`` (a no-op without matplotlib, as the JAX one).
+  ``plot_training_history`` (the JAX one's four PNGs, written without
+  matplotlib).
 """
 
 import tests._torch_threads  # noqa: F401  (first: torch's thread share of a worker)
 
 import os
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -66,6 +66,7 @@ from smilify_tpu_torch.models.weight_port import flax_module_paths, state_dict_f
 from smilify_tpu_torch.train import config as tconfig
 from smilify_tpu_torch.train import trainer as ttrainer
 from tests._torch_datasets import IndexDataset
+from tests._torch_no_plotlibs import block_plot_libraries
 from tests.test_torch_models import assert_close, random_variables
 
 BN_TOL = 1e-6
@@ -514,11 +515,13 @@ def test_try_resume_restores_and_resets_the_ief_embedding(small, tmp_path):
 
 
 def test_plot_training_history_without_matplotlib(monkeypatch, tmp_path):
+    from smilify_tpu_torch.utils.image_io import read_png
+
     hist = [{"epoch": i, "loss": 1.0 / (i + 1), "lr": 1e-3, "loss_a": 0.5, "ief_d": 0.1}
             for i in range(3)]
+    block_plot_libraries(monkeypatch)
     written = ttrainer.plot_training_history(hist, str(tmp_path / "plots"))
-    assert sorted(os.path.basename(p) for p in written) == [
-        "ief_deltas.png", "loss_components.png", "lr_schedule.png", "training_history.png"]
-    monkeypatch.setitem(sys.modules, "matplotlib", None)        # the card's machine
-    assert ttrainer.plot_training_history(hist, str(tmp_path / "none")) == []
-    assert not (tmp_path / "none").exists()
+    assert {os.path.basename(p): read_png(p).shape for p in written} == {
+        "training_history.png": (480, 840, 4), "lr_schedule.png": (360, 840, 4),
+        "loss_components.png": (480, 960, 4), "ief_deltas.png": (480, 960, 4)}
+    assert ttrainer.plot_training_history([], str(tmp_path / "none")) == []
