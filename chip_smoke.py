@@ -537,25 +537,24 @@ def kernel_phase(spec, n_frames, size, dev, timed=(), saturating=False):
     return records
 
 
-def kernel_wrappers():
-    from smilify_tpu_torch.render import rasterizer as R
-    from smilify_tpu_torch.render import rasterizer_worklist as RW
-    from smilify_tpu_torch.tools.peak import fma_peak
-
-    return {"exact_fwd": R.exact_fwd, "exact_bwd": R.exact_bwd,
-            "worklist_fwd": RW.worklist_fwd, "worklist_bwd": RW.worklist_bwd,
-            "fma_peak": fma_peak}
-
-
 def zero_counts():
-    for fn in kernel_wrappers().values():
-        fn.launches = 0
-        if hasattr(fn, "frames"):
-            fn.frames = 0
+    """Start the kernels' counts anew (the run records throughout)."""
+    from smilify_tpu_torch.utils import monitoring
+
+    monitoring.reset()
 
 
-def read_counts():
-    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+def read_counts(what="launches"):
+    """Each kernel's launches (or, for the raster kernels, ``"frames"``)
+    since :func:`zero_counts`, as the recorder's counters hold them."""
+    from smilify_tpu_torch.utils import monitoring
+
+    counters = monitoring.summary()["counters"]
+    names = {k: f"raster.{k}.{what}" for k in ("exact_fwd", "exact_bwd", "worklist_fwd",
+                                                 "worklist_bwd")}
+    if what == "launches":
+        names["fma_peak"] = "peak.fma.launches"
+    return {k: counters.get(name, 0) for k, name in names.items()}
 
 
 def sass_summary(lib, kernel):
@@ -802,7 +801,7 @@ def batched_phase(spec, spec_name, dev):
     batched = BatchedFitter(spec, clips, size, device=dev)
     batched.fit(schedule)
     counts = read_counts()
-    frames = {k: kernel_wrappers()[k].frames for k in ("exact_fwd", "exact_bwd")}
+    frames = {k: read_counts("frames")[k] for k in ("exact_fwd", "exact_bwd")}
     log(f"  batched fit: launches {counts}, frames {frames}")
     check(counts["exact_fwd"] == counts["exact_bwd"] == 4 and
           all(frames[k] == 4 * S * N for k in frames) and counts["worklist_fwd"] == 0,
@@ -1055,10 +1054,10 @@ def cli_phase(toy, dev, card):
     counts = read_counts()
     log(f"  optimize_corpus, 4 one-frame clips: {wall:.2f} s wall, {4 * steps / wall:.2f} "
         f"clip-steps/s ({card}); launches {counts}, frames a launch "
-        f"{kernel_wrappers()['worklist_fwd'].frames / max(1, counts['worklist_fwd']):.1f}")
+        f"{read_counts('frames')['worklist_fwd'] / max(1, counts['worklist_fwd']):.1f}")
     check(counts["worklist_fwd"] > 0 and counts["worklist_bwd"] > 0,
           "optimize_corpus: the work-list kernels were never launched")
-    check(kernel_wrappers()["worklist_bwd"].frames == 4 * counts["worklist_bwd"],
+    check(read_counts("frames")["worklist_bwd"] == 4 * counts["worklist_bwd"],
           "optimize_corpus: a raster launch did not take all 4 clips")
     check_frame_exports(out, frames, range(4))
     ck = load_fitter_checkpoint(str(out), frames, 10, "0")
@@ -3952,7 +3951,11 @@ def main():
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--scaleout-rank"]:
-        scaleout_rank(sys.argv[2], sys.argv[3])     # one rank of phase 13 (b)/(c), under torchrun
-    else:
-        main()
+    from smilify_tpu_torch.utils import monitoring
+
+    # recorded throughout: the kernels' launch counts are the recorder's counters
+    with monitoring.recording():
+        if sys.argv[1:2] == ["--scaleout-rank"]:
+            scaleout_rank(sys.argv[2], sys.argv[3])     # one rank of phase 13 (b)/(c)
+        else:
+            main()

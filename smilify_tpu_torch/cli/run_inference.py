@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from smilify_tpu_torch._device import resolve_device
+from smilify_tpu_torch.utils import monitoring
 
 RENDER_CHUNK = 8   # single-view frames rendered between two host fetches
 VIDEO_FPS = 15
@@ -104,14 +105,15 @@ def predictor(model, rcfg, spec, multiview: bool):
 
     @torch.no_grad()
     def predict(batch):
-        if multiview:
-            raw, _ = model(batch["images"], batch["view_mask"], batch["camera_indices"])
-        else:
-            raw, _ = model(batch["image"])
-        with float32_region(spec.device):
+        with monitoring.span("infer.predict"):
             if multiview:
-                return decode_multiview_predictions(rcfg, raw, spec)
-            return decode_predictions(rcfg, raw, spec)
+                raw, _ = model(batch["images"], batch["view_mask"], batch["camera_indices"])
+            else:
+                raw, _ = model(batch["image"])
+            with monitoring.span("model.decode"), float32_region(spec.device):
+                if multiview:
+                    return decode_multiview_predictions(rcfg, raw, spec)
+                return decode_predictions(rcfg, raw, spec)
 
     return predict
 

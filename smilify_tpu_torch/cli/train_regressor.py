@@ -117,10 +117,11 @@ def make_singleview_apply_fn(rcfg, spec):
     """``apply_fn(model, batch, train) -> preds``: the decoded predictions
     and the IEF history of ``batch["image"]``."""
     from smilify_tpu_torch.models.regressor import decode_predictions, float32_region
+    from smilify_tpu_torch.utils import monitoring
 
     def apply_fn(model, batch, train):
         raw, history = model(batch["image"])
-        with float32_region(batch["image"].device):
+        with monitoring.span("model.decode"), float32_region(batch["image"].device):
             preds = decode_predictions(rcfg, raw, spec)
         preds["ief_history"] = history
         return preds

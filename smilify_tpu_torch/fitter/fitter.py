@@ -43,6 +43,7 @@ from smilify_tpu_torch.fitter.priors import (
 from smilify_tpu_torch.fitter.stages import OPT_WEIGHTS, StageWeights
 from smilify_tpu_torch.render.cameras import FoVCamera, default_camera
 from smilify_tpu_torch.render.rasterizer import soft_silhouette
+from smilify_tpu_torch.utils import monitoring
 
 
 @dataclass
@@ -173,11 +174,12 @@ def render_frame(
 def _project_frames(camera: FoVCamera, fov, verts, joints3d, image_size):
     """Per-frame camera math for a batch: fov (N,), verts (N, V, 3), joints
     (N, K, 3) → NDC vertices with view depth (N, V, 3), (y, x) joints."""
-    cam = camera.replace(fov=fov[:, None])
-    proj_yx = cam.project_points_yx(joints3d, image_size)
-    pts_view = cam.world_to_view(verts)
-    ndc = cam.view_to_ndc(pts_view)
-    return torch.cat([ndc[..., :2], pts_view[..., 2:3]], dim=-1), proj_yx
+    with monitoring.span("fit.project"):
+        cam = camera.replace(fov=fov[:, None])
+        proj_yx = cam.project_points_yx(joints3d, image_size)
+        pts_view = cam.world_to_view(verts)
+        ndc = cam.view_to_ndc(pts_view)
+        return torch.cat([ndc[..., :2], pts_view[..., 2:3]], dim=-1), proj_yx
 
 
 def loss_objs(
@@ -221,14 +223,15 @@ def loss_objs(
 
 def _posed(spec, params: FitParams, allow_limb_scaling: bool):
     """SMIL forward of ``params`` for every frame → (verts, joints, theta, betas)."""
-    N, J = params.global_rot.shape[0], spec.n_joints
-    theta = torch.cat([params.global_rot[:, None, :], params.joint_rot], dim=1)
-    log_scales = params.log_beta_scales.expand(N, J, 3) if allow_limb_scaling else None
-    joint_trans = params.joint_trans.expand(N, J, 3)
-    betas = params.betas.expand(N, params.betas.shape[0])
-    out = smil_forward(spec, betas, theta, log_scales=log_scales, joint_trans=joint_trans)
-    return (out.verts + params.trans[:, None, :], out.joints + params.trans[:, None, :],
-            theta, betas)
+    with monitoring.span("fit.smil_forward"):
+        N, J = params.global_rot.shape[0], spec.n_joints
+        theta = torch.cat([params.global_rot[:, None, :], params.joint_rot], dim=1)
+        log_scales = params.log_beta_scales.expand(N, J, 3) if allow_limb_scaling else None
+        joint_trans = params.joint_trans.expand(N, J, 3)
+        betas = params.betas.expand(N, params.betas.shape[0])
+        out = smil_forward(spec, betas, theta, log_scales=log_scales, joint_trans=joint_trans)
+        return (out.verts + params.trans[:, None, :], out.joints + params.trans[:, None, :],
+                theta, betas)
 
 
 def forward_losses(
@@ -268,12 +271,13 @@ def forward_losses(
         )
 
     vis = (visibility_override if visibility_override is not None else data.visibility)
-    objs = loss_objs(
-        weights, pose_prior, limit_prior, shape_prior,
-        params.joint_rot, theta, betas, joints_r, data.joints, vis.to(torch.float32),
-        sil_r, data.sil if render_sil else None,
-    )
-    total = functools.reduce(lambda a, b: a + b, objs.values())
+    with monitoring.span("fit.losses"):
+        objs = loss_objs(
+            weights, pose_prior, limit_prior, shape_prior,
+            params.joint_rot, theta, betas, joints_r, data.joints, vis.to(torch.float32),
+            sil_r, data.sil if render_sil else None,
+        )
+        total = functools.reduce(lambda a, b: a + b, objs.values())
     return total, objs
 
 
@@ -375,7 +379,8 @@ class SmalFitter:
             approx_max_faces=self.approx_max_faces,
             camera=self.camera,
         )
-        tj, tg, tt = temporal_losses(params, weights.w_temp)
+        with monitoring.span("fit.losses"):
+            tj, tg, tt = temporal_losses(params, weights.w_temp)
         objs = dict(objs, temporal_joint=tj, temporal_global=tg, temporal_trans=tt)
         return total + tj + tg + tt, objs
 
@@ -391,67 +396,73 @@ class SmalFitter:
         """Run one optimization stage. ``chunk`` steps run back to back
         (remainder steps singly) and their losses are read back once per
         chunk for ``callback(stage_id, it, loss, objs)``."""
-        freeze = {}
-        if stage_id == 0:
-            freeze = {
-                "joint_rot": True,
-                "betas": True,
-                "log_beta_scales": True,
-                "torso_only": True,
-            }
-        elif not self.allow_limb_scaling:
-            freeze = {"log_beta_scales": True}
+        with monitoring.span("fit.stage"):
+            freeze = {}
+            if stage_id == 0:
+                freeze = {
+                    "joint_rot": True,
+                    "betas": True,
+                    "log_beta_scales": True,
+                    "torso_only": True,
+                }
+            elif not self.allow_limb_scaling:
+                freeze = {"log_beta_scales": True}
 
-        # a non-positive weight switches its term off
-        weights = weights._replace(**{
-            f: (getattr(weights, f) if getattr(weights, f) > 0 else 0.0)
-            for f in self._WEIGHT_FIELDS
-        })
-        mask = self._freeze_mask(freeze)
-        visibility = (
-            self._torso_visibility if freeze.get("torso_only", False) else self.data.visibility
-        )
-        chunk = max(1, min(int(chunk), weights.num_iters or 1))
+            # a non-positive weight switches its term off
+            weights = weights._replace(**{
+                f: (getattr(weights, f) if getattr(weights, f) > 0 else 0.0)
+                for f in self._WEIGHT_FIELDS
+            })
+            mask = self._freeze_mask(freeze)
+            visibility = (
+                self._torso_visibility if freeze.get("torso_only", False) else self.data.visibility
+            )
+            chunk = max(1, min(int(chunk), weights.num_iters or 1))
 
-        # fresh leaves and optimizer state per stage
-        leaves = {k: getattr(self.params, k).detach().clone().requires_grad_(True)
-                  for k in FitParams.fields()}
-        params = FitParams(**leaves)
-        opt = torch.optim.Adam(
-            [{"params": [v for k, v in leaves.items() if k != "fov"], "lr": weights.lr},
-             {"params": [leaves["fov"]], "lr": 1.0}],
-            betas=(0.5, 0.999), eps=1e-8,
-        )
+            # fresh leaves and optimizer state per stage
+            leaves = {k: getattr(self.params, k).detach().clone().requires_grad_(True)
+                      for k in FitParams.fields()}
+            params = FitParams(**leaves)
+            opt = torch.optim.Adam(
+                [{"params": [v for k, v in leaves.items() if k != "fov"], "lr": weights.lr},
+                 {"params": [leaves["fov"]], "lr": 1.0}],
+                betas=(0.5, 0.999), eps=1e-8,
+            )
 
-        def step():
-            opt.zero_grad(set_to_none=True)
-            total, objs = self._total_loss(params, weights, visibility, self.data)
-            total.backward()
-            with torch.no_grad():
-                for leaf in leaves.values():
-                    if leaf.grad is None:
-                        leaf.grad = torch.zeros_like(leaf)
-                self._reduce_grads(leaves)
-                for k, leaf in leaves.items():
-                    if mask[k] != 1.0:
-                        leaf.grad.mul_(mask[k])
-            opt.step()
-            return total.detach(), {k: v.detach() for k, v in objs.items()}
+            def step():
+                with monitoring.span("fit.step"):
+                    opt.zero_grad(set_to_none=True)
+                    total, objs = self._total_loss(params, weights, visibility, self.data)
+                    with monitoring.span("fit.backward"):
+                        total.backward()
+                    with monitoring.span("fit.update"):
+                        with torch.no_grad():
+                            for leaf in leaves.values():
+                                if leaf.grad is None:
+                                    leaf.grad = torch.zeros_like(leaf)
+                            self._reduce_grads(leaves)
+                            for k, leaf in leaves.items():
+                                if mask[k] != 1.0:
+                                    leaf.grad.mul_(mask[k])
+                        opt.step()
+                    return total.detach(), {k: v.detach() for k, v in objs.items()}
 
-        loss = None
-        it = 0
-        while it < weights.num_iters:
-            n = chunk if weights.num_iters - it >= chunk else 1
-            results = [step() for _ in range(n)]
-            loss = results[-1][0]
-            # callbacks see the end-of-chunk parameters, as the JAX fitter's do
+            loss = None
+            it = 0
+            while it < weights.num_iters:
+                n = chunk if weights.num_iters - it >= chunk else 1
+                results = [step() for _ in range(n)]
+                loss = results[-1][0]
+                # callbacks see the end-of-chunk parameters, as the JAX fitter's do
+                self.params = FitParams(**{k: v.detach() for k, v in leaves.items()})
+                if callback is not None:
+                    with monitoring.span("fit.readback"):
+                        rows = self._readback(results)
+                    for j, (loss_j, objs_j) in enumerate(rows):
+                        callback(stage_id, it + j, loss_j, objs_j)
+                it += n
             self.params = FitParams(**{k: v.detach() for k, v in leaves.items()})
-            if callback is not None:
-                for j, (loss_j, objs_j) in enumerate(self._readback(results)):
-                    callback(stage_id, it + j, loss_j, objs_j)
-            it += n
-        self.params = FitParams(**{k: v.detach() for k, v in leaves.items()})
-        return self._stage_loss(loss)
+            return self._stage_loss(loss)
 
     # --- hooks of the sharded fitters (fitter_frames.ShardedFitterMixin) ---
 

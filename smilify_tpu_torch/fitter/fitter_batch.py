@@ -55,6 +55,7 @@ from smilify_tpu_torch.fitter.stages import StageWeights
 from smilify_tpu_torch.render.cameras import FoVCamera, default_camera
 from smilify_tpu_torch.render.rasterizer import soft_silhouette
 from smilify_tpu_torch.train.multihost import axis_group, globalize, process_count
+from smilify_tpu_torch.utils import monitoring
 
 
 def init_params_many(spec: ModelSpec, n_seqs: int, n_frames: int,
@@ -83,20 +84,21 @@ def _batched_smil_forward(spec: ModelSpec, params: FitParams, allow_limb_scaling
     def flat(x):
         return x.reshape((S * N,) + tuple(x.shape[2:]))
 
-    theta = torch.cat([params.global_rot[:, :, None, :], params.joint_rot], dim=2)
-    betas_bc = params.betas[:, None, :].expand(S, N, B)
-    log_scales = (params.log_beta_scales[:, None].expand(S, N, J, 3)
-                  if allow_limb_scaling else None)
-    joint_trans = params.joint_trans[:, None].expand(S, N, J, 3)
+    with monitoring.span("fit.smil_forward"):
+        theta = torch.cat([params.global_rot[:, :, None, :], params.joint_rot], dim=2)
+        betas_bc = params.betas[:, None, :].expand(S, N, B)
+        log_scales = (params.log_beta_scales[:, None].expand(S, N, J, 3)
+                      if allow_limb_scaling else None)
+        joint_trans = params.joint_trans[:, None].expand(S, N, J, 3)
 
-    out = smil_forward(
-        spec, flat(betas_bc), flat(theta),
-        log_scales=None if log_scales is None else flat(log_scales),
-        joint_trans=flat(joint_trans),
-    )
-    trans_f = flat(params.trans)
-    return (out.verts + trans_f[:, None, :], out.joints + trans_f[:, None, :],
-            theta, betas_bc)
+        out = smil_forward(
+            spec, flat(betas_bc), flat(theta),
+            log_scales=None if log_scales is None else flat(log_scales),
+            joint_trans=flat(joint_trans),
+        )
+        trans_f = flat(params.trans)
+        return (out.verts + trans_f[:, None, :], out.joints + trans_f[:, None, :],
+                theta, betas_bc)
 
 
 @torch.no_grad()
@@ -149,16 +151,17 @@ def forward_losses_many(
     vis = (visibility_override if visibility_override is not None
            else data.visibility).to(torch.float32)
     joints_r = joints_r.reshape(S, N, joints_r.shape[-2], 2)
-    per_seq = [
-        loss_objs(weights, pose_prior, limit_prior, shape_prior,
-                  params.joint_rot[s], theta[s], betas_bc[s], joints_r[s], data.joints[s],
-                  vis[s], sil_r[s] if render_sil else None,
-                  data.sil[s] if render_sil else None)
-        for s in range(S)
-    ]
-    objs = {k: functools.reduce(lambda a, b: a + b, (o[k] for o in per_seq))
-            for k in per_seq[0]}
-    total = functools.reduce(lambda a, b: a + b, objs.values())
+    with monitoring.span("fit.losses"):
+        per_seq = [
+            loss_objs(weights, pose_prior, limit_prior, shape_prior,
+                      params.joint_rot[s], theta[s], betas_bc[s], joints_r[s], data.joints[s],
+                      vis[s], sil_r[s] if render_sil else None,
+                      data.sil[s] if render_sil else None)
+            for s in range(S)
+        ]
+        objs = {k: functools.reduce(lambda a, b: a + b, (o[k] for o in per_seq))
+                for k in per_seq[0]}
+        total = functools.reduce(lambda a, b: a + b, objs.values())
     return total, objs
 
 
@@ -184,9 +187,10 @@ class BatchedFitter(SmalFitter):
             camera=self.camera,
         )
         # frame pairs within each sequence only
-        per_seq = [temporal_losses(sequence_params(params, s), weights.w_temp)
-                   for s in range(self.n_seqs)]
-        tj, tg, tt = (functools.reduce(lambda a, b: a + b, terms) for terms in zip(*per_seq))
+        with monitoring.span("fit.losses"):
+            per_seq = [temporal_losses(sequence_params(params, s), weights.w_temp)
+                       for s in range(self.n_seqs)]
+            tj, tg, tt = (functools.reduce(lambda a, b: a + b, terms) for terms in zip(*per_seq))
         objs = dict(objs, temporal_joint=tj, temporal_global=tg, temporal_trans=tt)
         return total + tj + tg + tt, objs
 
@@ -263,7 +267,8 @@ class GridShardedFitter(ShardedFitterMixin, BatchedFitter):
             camera=self.camera,
         )
         objs = {k: (v / Df if k in _FRAME_MEAN_TERMS else v) for k, v in objs.items()}
-        tj, tg, tt = temporal_losses_halo(params, weights.w_temp, *self._frames)
+        with monitoring.span("fit.losses"):
+            tj, tg, tt = temporal_losses_halo(params, weights.w_temp, *self._frames)
         objs = dict(objs, temporal_joint=tj, temporal_global=tg, temporal_trans=tt)
         return functools.reduce(lambda a, b: a + b, objs.values()), objs
 

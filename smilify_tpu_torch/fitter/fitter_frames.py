@@ -48,6 +48,7 @@ from smilify_tpu_torch.train.multihost import (
     make_mesh,
     process_count,
 )
+from smilify_tpu_torch.utils import monitoring
 
 # loss terms normalized by a mean over frames/pixels (a global count): each
 # rank's value is scaled by 1/D so that the sum over ranks is exact; 'splay'
@@ -237,7 +238,8 @@ class ShardedSequenceFitter(ShardedFitterMixin, SmalFitter):
             camera=self.camera,
         )
         objs = {k: (v / D if k in _FRAME_MEAN_TERMS else v) for k, v in objs.items()}
-        tj, tg, tt = temporal_losses_halo(params, weights.w_temp, *self._frames)
+        with monitoring.span("fit.losses"):
+            tj, tg, tt = temporal_losses_halo(params, weights.w_temp, *self._frames)
         objs = dict(objs, temporal_joint=tj, temporal_global=tg, temporal_trans=tt)
         return functools.reduce(lambda a, b: a + b, objs.values()), objs
 

@@ -39,6 +39,7 @@ from smilify_tpu_torch.core.spec import ModelSpec
 from smilify_tpu_torch.models.backbones import create_backbone, flax_init_
 from smilify_tpu_torch.models.transformer_decoder import MLPHead, SMILTransformerDecoderHead
 from smilify_tpu_torch.render.cameras import default_camera
+from smilify_tpu_torch.utils import monitoring
 
 DEFAULT_LOSS_WEIGHTS: Dict[str, float] = {
     "global_rot": 0.02,
@@ -162,9 +163,9 @@ class SMILRegressor(nn.Module):
 
     def forward(self, images: torch.Tensor):
         cfg = self.config
-        with backbone_autocast(cfg, images.device):
+        with monitoring.span("model.backbone"), backbone_autocast(cfg, images.device):
             feats = self.backbone(images)
-        with float32_region(images.device):
+        with monitoring.span("model.head"), float32_region(images.device):
             if cfg.head_type == "transformer":
                 return self.head(feats.tokens.float())
             return self.head(feats.pooled.float())
@@ -231,25 +232,28 @@ def forward_model(spec: ModelSpec, preds: Dict[str, torch.Tensor],
                   propagate_scaling: bool = False, use_ue_scaling: bool = False):
     """SMIL forward with predicted parameters → (verts, joints3d) in model
     space. ``use_ue_scaling`` applies the replicAnt ×10-about-root
-    convention; a ``mesh_scale`` prediction scales about the root."""
-    theta = torch.cat([preds["global_rot"][:, None, :], preds["joint_rot"]], dim=1)
-    scaled = use_ue_scaling or "mesh_scale" in preds
-    out = smil_forward(
-        spec, preds["betas"], theta,
-        trans=None if scaled else preds["trans"],
-        log_scales=preds.get("log_beta_scales"),
-        joint_trans=preds.get("betas_trans"),
-        propagate_scaling=propagate_scaling,
-    )
-    if scaled:
-        s = 10.0 if use_ue_scaling else preds["mesh_scale"][:, None, None]
-        root = out.j_transformed[:, :1, :]
-        trans = preds["trans"][:, None, :]
-        return (out.verts - root) * s + trans, (out.joints - root) * s + trans
-    joints = out.joints
-    if spec.static_joint_locations:
-        joints = joints + preds["trans"][:, None, :]
-    return out.verts, joints
+    convention; a ``mesh_scale`` prediction scales about the root. Timed
+    as the span ``infer.smil_forward``, under ``train.loss`` where the loss
+    engine calls it."""
+    with monitoring.span("infer.smil_forward"):
+        theta = torch.cat([preds["global_rot"][:, None, :], preds["joint_rot"]], dim=1)
+        scaled = use_ue_scaling or "mesh_scale" in preds
+        out = smil_forward(
+            spec, preds["betas"], theta,
+            trans=None if scaled else preds["trans"],
+            log_scales=preds.get("log_beta_scales"),
+            joint_trans=preds.get("betas_trans"),
+            propagate_scaling=propagate_scaling,
+        )
+        if scaled:
+            s = 10.0 if use_ue_scaling else preds["mesh_scale"][:, None, None]
+            root = out.j_transformed[:, :1, :]
+            trans = preds["trans"][:, None, :]
+            return (out.verts - root) * s + trans, (out.joints - root) * s + trans
+        joints = out.joints
+        if spec.static_joint_locations:
+            joints = joints + preds["trans"][:, None, :]
+        return out.verts, joints
 
 
 def batched_camera(R: torch.Tensor, T: torch.Tensor, fov: torch.Tensor):

@@ -18,8 +18,12 @@ Two kernels do the work, each with a plain-PyTorch version of the same
 function beside it (``exact_fwd`` / ``exact_fwd_plain``, ``exact_bwd`` /
 ``exact_bwd_plain``). A wrapper launches its CUDA kernel for a CUDA tensor
 (a build or launch failure raises) and runs the plain version for a CPU
-tensor; each counts its launches in ``<wrapper>.launches`` and the frames
-those launches took in ``<wrapper>.frames``.
+tensor; each counts its launches in the counter
+``raster.<wrapper>.launches`` and the frames those launches took in
+``raster.<wrapper>.frames`` (:mod:`smilify_tpu_torch.utils.monitoring`,
+while recording). The autograd function times its set-up (face packing and
+cull mask), forward and backward as the spans ``raster.setup``,
+``raster.fwd`` and ``raster.bwd``.
 
 The TPU-only plumbing of the JAX package has no counterpart here: its SMEM
 budget for the scalar-prefetched cull mask and the frame sub-batching it
@@ -36,6 +40,7 @@ import torch
 from smilify_tpu_torch._device import resolve_device
 from smilify_tpu_torch.render import _kernels
 from smilify_tpu_torch.render.rasterizer_ref import SIGMA, soft_silhouette_ref, softplus
+from smilify_tpu_torch.utils import monitoring
 
 TILE_H = 32
 TILE_W = 32
@@ -307,13 +312,9 @@ def exact_fwd(face_data, mask, H, W, sigma, work=None):
         _kernels.launch(
             "smil_exact_fwd", face_data.data_ptr(), mask.data_ptr(), S.data_ptr(),
             _kernels.ptr(work), N, C, H, W, 1.0 / sigma, _kernels.stream())
-    exact_fwd.launches += 1
-    exact_fwd.frames += N
+    monitoring.count("raster.exact_fwd.launches")
+    monitoring.count("raster.exact_fwd.frames", N)
     return S
-
-
-exact_fwd.launches = 0
-exact_fwd.frames = 0
 
 
 # ---------------------------------------------------------------------------
@@ -366,13 +367,9 @@ def exact_bwd(face_data, mask, gS_tiles, H, W, sigma, work=None):
         _kernels.launch(
             "smil_exact_bwd", face_data.data_ptr(), mask.data_ptr(), gS_tiles.data_ptr(),
             dface.data_ptr(), _kernels.ptr(work), N, C, H, W, 1.0 / sigma, _kernels.stream())
-    exact_bwd.launches += 1
-    exact_bwd.frames += N
+    monitoring.count("raster.exact_bwd.launches")
+    monitoring.count("raster.exact_bwd.frames", N)
     return dface
-
-
-exact_bwd.launches = 0
-exact_bwd.frames = 0
 
 
 # ---------------------------------------------------------------------------
@@ -387,22 +384,25 @@ class _RasterS(torch.autograd.Function):
     @staticmethod
     def forward(ctx, tri_xy, valid, image_size, sigma):
         H, W = image_size
-        face_data = _pack_faces(tri_xy, valid)
-        mask = _tile_cull_mask(tri_xy, valid, H, W, sigma)
-        S_tiles = exact_fwd(face_data, mask, H, W, sigma)
-        # packed faces + cull words are small (~200 kB a frame) and save
-        # rebuilding both in the backward pass
-        ctx.save_for_backward(face_data, mask)
-        ctx.meta = (tri_xy.shape[1], H, W, sigma)
-        return _tiles_to_image(S_tiles, H, W)
+        with monitoring.span("raster.setup"):
+            face_data = _pack_faces(tri_xy, valid)
+            mask = _tile_cull_mask(tri_xy, valid, H, W, sigma)
+        with monitoring.span("raster.fwd"):
+            S_tiles = exact_fwd(face_data, mask, H, W, sigma)
+            # packed faces + cull words are small (~200 kB a frame) and save
+            # rebuilding both in the backward pass
+            ctx.save_for_backward(face_data, mask)
+            ctx.meta = (tri_xy.shape[1], H, W, sigma)
+            return _tiles_to_image(S_tiles, H, W)
 
     @staticmethod
     def backward(ctx, gS):
-        face_data, mask = ctx.saved_tensors
-        F, H, W, sigma = ctx.meta
-        dface = exact_bwd(face_data, mask, _image_to_tiles(gS, H, W), H, W, sigma)
-        N = dface.shape[0]
-        return dface.reshape(N, -1, 8)[:, :F, :6].reshape(N, F, 3, 2), None, None, None
+        with monitoring.span("raster.bwd"):
+            face_data, mask = ctx.saved_tensors
+            F, H, W, sigma = ctx.meta
+            dface = exact_bwd(face_data, mask, _image_to_tiles(gS, H, W), H, W, sigma)
+            N = dface.shape[0]
+            return dface.reshape(N, -1, 8)[:, :F, :6].reshape(N, F, 3, 2), None, None, None
 
 
 def raster_S(tri_xy, valid, image_size, sigma=SIGMA):

@@ -11,8 +11,9 @@ exact raster (same subgroups, same math).
 
 The lists are built in plain PyTorch (``torch.topk`` on the same keys as the
 JAX package's ``lax.top_k``). Two kernels walk them — ``worklist_fwd`` and
-``worklist_bwd``, each beside its plain version — with the same dispatch
-and launch counters as :mod:`rasterizer`. The forward walks the list in
+``worklist_bwd``, each beside its plain version — with the same dispatch,
+counters (``raster.worklist_fwd.launches``, ...) and spans (``raster.setup``
+around the packing and the lists) as :mod:`rasterizer`. The forward walks the list in
 batches of 64 subgroups and stops a tile once every pixel has S ≥ 20 at the
 start of a batch.
 """
@@ -38,6 +39,7 @@ from smilify_tpu_torch.render.rasterizer import (
     _tile_pixels,
     _tiles_to_image,
 )
+from smilify_tpu_torch.utils import monitoring
 
 
 def _pack_faces_flat(tri_xy: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -132,13 +134,9 @@ def worklist_fwd(face_flat, idx, count, H, W, sigma, work=None):
             "smil_worklist_fwd", face_flat.data_ptr(), idx.data_ptr(), count.data_ptr(),
             S.data_ptr(), _kernels.ptr(work), N, F8, k_sub, H, W, 1.0 / sigma,
             _kernels.stream())
-    worklist_fwd.launches += 1
-    worklist_fwd.frames += N
+    monitoring.count("raster.worklist_fwd.launches")
+    monitoring.count("raster.worklist_fwd.frames", N)
     return S
-
-
-worklist_fwd.launches = 0
-worklist_fwd.frames = 0
 
 
 # ---------------------------------------------------------------------------
@@ -189,13 +187,9 @@ def worklist_bwd(face_flat, idx, count, gS_tiles, H, W, sigma, work=None):
             "smil_worklist_bwd", face_flat.data_ptr(), idx.data_ptr(), count.data_ptr(),
             gS_tiles.data_ptr(), dface.data_ptr(), _kernels.ptr(work), N, F8, k_sub, H, W,
             1.0 / sigma, _kernels.stream())
-    worklist_bwd.launches += 1
-    worklist_bwd.frames += N
+    monitoring.count("raster.worklist_bwd.launches")
+    monitoring.count("raster.worklist_bwd.frames", N)
     return dface
-
-
-worklist_bwd.launches = 0
-worklist_bwd.frames = 0
 
 
 # ---------------------------------------------------------------------------
@@ -207,20 +201,23 @@ class _RasterSWorklist(torch.autograd.Function):
     @staticmethod
     def forward(ctx, tri_xy, tri_z, valid, image_size, sigma, k_sub):
         H, W = image_size
-        face_flat = _pack_faces_flat(tri_xy, valid)
-        idx, count = _tile_worklists(tri_xy, tri_z, valid, H, W, sigma, k_sub)
-        S_tiles = worklist_fwd(face_flat, idx, count, H, W, sigma)
-        ctx.save_for_backward(face_flat, idx, count)
-        ctx.meta = (tri_xy.shape[1], H, W, sigma)
-        return _tiles_to_image(S_tiles, H, W)
+        with monitoring.span("raster.setup"):
+            face_flat = _pack_faces_flat(tri_xy, valid)
+            idx, count = _tile_worklists(tri_xy, tri_z, valid, H, W, sigma, k_sub)
+        with monitoring.span("raster.fwd"):
+            S_tiles = worklist_fwd(face_flat, idx, count, H, W, sigma)
+            ctx.save_for_backward(face_flat, idx, count)
+            ctx.meta = (tri_xy.shape[1], H, W, sigma)
+            return _tiles_to_image(S_tiles, H, W)
 
     @staticmethod
     def backward(ctx, gS):
-        face_flat, idx, count = ctx.saved_tensors
-        F, H, W, sigma = ctx.meta
-        dface = worklist_bwd(face_flat, idx, count, _image_to_tiles(gS, H, W), H, W, sigma)
-        N = dface.shape[0]
-        return dface[:, :F, :6].reshape(N, F, 3, 2), None, None, None, None, None
+        with monitoring.span("raster.bwd"):
+            face_flat, idx, count = ctx.saved_tensors
+            F, H, W, sigma = ctx.meta
+            dface = worklist_bwd(face_flat, idx, count, _image_to_tiles(gS, H, W), H, W, sigma)
+            N = dface.shape[0]
+            return dface[:, :F, :6].reshape(N, F, 3, 2), None, None, None, None, None
 
 
 def raster_S_worklist(tri_xy, tri_z, valid, image_size, sigma, k_sub):

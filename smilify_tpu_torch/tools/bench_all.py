@@ -77,6 +77,7 @@ from smilify_tpu_torch.render.cameras import default_camera
 from smilify_tpu_torch.render.rasterizer import soft_silhouette
 from smilify_tpu_torch.tools._timing import timeit_chain
 from smilify_tpu_torch.tools.peak import SHAPE, flops, fma_peak
+from smilify_tpu_torch.utils import monitoring
 from smilify_tpu_torch.utils.export import load_obj
 from smilify_tpu_torch.utils.visualization import silhouette_iou
 
@@ -222,9 +223,10 @@ def raster_active_subgroups(spec, params: FitParams, image_size, approx_max_face
 
 
 def _kernel_counts():
-    wrappers = {"exact_fwd": R.exact_fwd, "exact_bwd": R.exact_bwd,
-                "worklist_fwd": RW.worklist_fwd, "worklist_bwd": RW.worklist_bwd}
-    return {name: (fn.launches, fn.frames) for name, fn in wrappers.items()}
+    """(launches, frames) of each raster kernel as the recorder counts them."""
+    c = monitoring.summary()["counters"]
+    return {name: (c.get(f"raster.{name}.launches", 0), c.get(f"raster.{name}.frames", 0))
+            for name in ("exact_fwd", "exact_bwd", "worklist_fwd", "worklist_bwd")}
 
 
 def bench_fitter_step(spec, n_frames=1, approx_max_faces=None, fp32_peak_gflops=None,
@@ -238,10 +240,12 @@ def bench_fitter_step(spec, n_frames=1, approx_max_faces=None, fp32_peak_gflops=
     N = n_frames
     data = synthetic_fit_data(spec, N, (H, W))
     weights = OPT_WEIGHTS[1]
-    before = _kernel_counts()
-    single, chain = time_modes(spec, data, weights, (H, W), approx_max_faces, repeats, target_s)
+    with monitoring.recording():
+        before = _kernel_counts()
+        single, chain = time_modes(spec, data, weights, (H, W), approx_max_faces, repeats,
+                                   target_s)
+        after = _kernel_counts()
     dt, dt_chained = 1 / single, 1 / chain
-    after = _kernel_counts()
     launches = {k: after[k][0] - before[k][0] for k in after}
     frames = {k: after[k][1] - before[k][1] for k in after}
 

@@ -7,8 +7,9 @@ CUDA kernel ``fma_peak_kernel`` (``csrc/peak.cu``), the same function
 element for element: 32 FMA streams a_i = x·(1 + 0.1·i), 128 rounds of
 a ← a·0.999999 + 1e-9, summed in stream order. :func:`fma_peak` launches it
 for a CUDA tensor (a build or launch failure raises) and runs
-:func:`fma_peak_plain` for a CPU tensor; it counts its launches in
-``fma_peak.launches``.
+:func:`fma_peak_plain` for a CPU tensor; it counts its launches in the
+counter ``peak.fma.launches`` (:mod:`smilify_tpu_torch.utils.monitoring`,
+while recording).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from smilify_tpu_torch.render import _kernels
+from smilify_tpu_torch.utils import monitoring
 
 STREAMS = 32
 ROUNDS = 128
@@ -57,8 +59,5 @@ def fma_peak(x: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(x.device):
         _kernels.launch("smil_fma_peak", x.data_ptr(), out.data_ptr(), x.numel(),
                         _kernels.stream())
-    fma_peak.launches += 1
+    monitoring.count("peak.fma.launches")
     return out
-
-
-fma_peak.launches = 0

@@ -199,9 +199,9 @@ def run(mode: str, run: str, workdir: str, epochs=None, samples=None, backbone=N
     from smilify_tpu_torch._device import resolve_device
     from smilify_tpu_torch.cli import benchmark_model, train_multiview, train_regressor
     from smilify_tpu_torch.core.spec import load_model_spec, toy_model_spec
-    from smilify_tpu_torch.render.rasterizer import exact_fwd
     from smilify_tpu_torch.tools.synthetic_data import write_model_pkl
     from smilify_tpu_torch.train.trainer import split_dataset
+    from smilify_tpu_torch.utils import monitoring
 
     cfg = RUNS[run]
     epochs = epochs or cfg["epochs"]
@@ -239,10 +239,14 @@ def run(mode: str, run: str, workdir: str, epochs=None, samples=None, backbone=N
                           toy_model_spec(*STICK_WIDTH, device="cpu"))
     spec = load_model_spec(pkl, align_symmetry=False, device=dev)
     t0 = time.perf_counter()
-    k1 = exact_fwd.launches
-    if store is None:
-        store = make_store(spec, n, cfg["views"][mode], res, cfg["seed"][mode], dev)
-    k1 = exact_fwd.launches - k1
+    def k1_launches():
+        return monitoring.summary()["counters"].get("raster.exact_fwd.launches", 0)
+
+    with monitoring.recording():
+        k1 = k1_launches()
+        if store is None:
+            store = make_store(spec, n, cfg["views"][mode], res, cfg["seed"][mode], dev)
+        k1 = k1_launches() - k1
     digest = store_digest(store)
     data_s = time.perf_counter() - t0
     if record is None:

@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from smilify_tpu_torch._device import resolve_device
+from smilify_tpu_torch.utils import monitoring
 
 # numpy dtype → the 32-bit one JAX's default mode stores (the JAX cache's columns)
 _NARROW = {np.dtype(np.float64): np.float32, np.dtype(np.int64): np.int32,
@@ -95,14 +96,15 @@ class DeviceDataCache:
 
     def batch(self, idx) -> Dict[str, torch.Tensor]:
         """The samples ``idx`` as a dict of device tensors, images as float in [0, 1]."""
-        i = torch.as_tensor(np.asarray(idx, np.int64), device=self.device)
-        b = {k: torch.index_select(v, 0, i) for k, v in self.arrays.items()}
-        for k in self._image_keys:
-            if b[k].dtype == torch.uint8:
-                # times the float32 reciprocal, as XLA compiles the JAX cache's
-                # division (true division rounds 126 of the 256 levels apart)
-                b[k] = b[k].to(torch.float32) * (1.0 / 255.0)
-        return b
+        with monitoring.span("data.batch"):
+            i = torch.as_tensor(np.asarray(idx, np.int64), device=self.device)
+            b = {k: torch.index_select(v, 0, i) for k, v in self.arrays.items()}
+            for k in self._image_keys:
+                if b[k].dtype == torch.uint8:
+                    # times the float32 reciprocal, as XLA compiles the JAX cache's
+                    # division (true division rounds 126 of the 256 levels apart)
+                    b[k] = b[k].to(torch.float32) * (1.0 / 255.0)
+            return b
 
     def iterate(self, batch_size: int, rng: np.random.Generator,
                 shuffle: bool = True, fraction: float = 1.0, rows=None):
@@ -368,33 +370,38 @@ def make_train_step(model: torch.nn.Module, apply_fn: Callable, loss_fn: Callabl
     net, group = data_parallel(model, mesh)
 
     def compute(mb):
-        total, objs = loss_fn(apply_fn(net, mb, True), mb)
-        total.backward()
+        preds = apply_fn(net, mb, True)
+        with monitoring.span("train.loss"):
+            total, objs = loss_fn(preds, mb)
+        with monitoring.span("train.backward"):
+            total.backward()
         return total.detach(), {k: v.detach() for k, v in objs.items()}
 
     def step(batch):
-        model.train()
-        for p in opt.params:
-            p.grad = None
-        if accum_steps > 1:
-            mbs = _split_batch(batch, accum_steps)
-            outs = []
-            for i, mb in enumerate(mbs):
-                quiet = group is not None and i < len(mbs) - 1
-                with net.no_sync() if quiet else contextlib.nullcontext():
-                    outs.append(compute(mb))
-            torch._foreach_div_([p.grad for p in opt.params if p.grad is not None],
-                                float(accum_steps))
-            loss = sum(loss for loss, _ in outs) / accum_steps
-            objs = {k: torch.stack([o[k] for _, o in outs]).mean() for k in outs[0][1]}
-        else:
-            loss, objs = compute(batch)
-        opt.step()
-        if group is not None:
-            names = list(objs)
-            loss, *vals = _mean_over(group, loss, *(objs[k] for k in names))
-            objs = dict(zip(names, vals))
-        return loss, objs
+        with monitoring.span("train.step"):
+            model.train()
+            for p in opt.params:
+                p.grad = None
+            if accum_steps > 1:
+                mbs = _split_batch(batch, accum_steps)
+                outs = []
+                for i, mb in enumerate(mbs):
+                    quiet = group is not None and i < len(mbs) - 1
+                    with net.no_sync() if quiet else contextlib.nullcontext():
+                        outs.append(compute(mb))
+                torch._foreach_div_([p.grad for p in opt.params if p.grad is not None],
+                                    float(accum_steps))
+                loss = sum(loss for loss, _ in outs) / accum_steps
+                objs = {k: torch.stack([o[k] for _, o in outs]).mean() for k in outs[0][1]}
+            else:
+                loss, objs = compute(batch)
+            with monitoring.span("train.update"):
+                opt.step()
+            if group is not None:
+                names = list(objs)
+                loss, *vals = _mean_over(group, loss, *(objs[k] for k in names))
+                objs = dict(zip(names, vals))
+            return loss, objs
 
     return step
 

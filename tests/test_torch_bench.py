@@ -37,6 +37,7 @@ from smilify_tpu_torch.core.spec import toy_model_spec
 from smilify_tpu_torch.fitter import fitter as tfit
 from smilify_tpu_torch.fitter import stages as tstages
 from smilify_tpu_torch.tools import _timing, bench_all, bench_corpus, bench_progressive, peak
+from smilify_tpu_torch.utils import monitoring
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 SIZE = 64
@@ -60,9 +61,10 @@ def _jax_probe(x):
 def test_fma_peak_plain_matches_jax_body():
     x = np.random.RandomState(0).uniform(0.25, 2.0, (16, 128)).astype(np.float32)
     want = np.asarray(jax.jit(_jax_probe)(jnp.asarray(x)))
-    launches = peak.fma_peak.launches
-    got = peak.fma_peak(torch.from_numpy(x))       # a CPU tensor: the plain version
-    assert peak.fma_peak.launches == launches
+    with monitoring.recording():
+        launches = monitoring.summary()["counters"].get("peak.fma.launches", 0)
+        got = peak.fma_peak(torch.from_numpy(x))       # a CPU tensor: the plain version
+        assert monitoring.summary()["counters"].get("peak.fma.launches", 0) == launches
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
     np.testing.assert_array_equal(got.numpy(), peak.fma_peak_plain(torch.from_numpy(x)).numpy())
     assert peak.flops(x.size) == 32 * 2 * 128 * x.size

@@ -317,15 +317,24 @@ def test_monitoring_on_the_cpu(tmp_path, monkeypatch):
         tmon.recommend_batch_size("resnet50")
 
     pm = tmon.PerformanceMonitor()
-    with pm.section("a"):
+    with pm.span("never recorded"):
         pass
-    pm.start("b")
-    pm.end("b")
-    pm.end("never started")
-    assert dict(pm.counts) == {"a": 1, "b": 1}
+    pm.count("never counted")
+    with pm.recording():
+        with pm.span("a"):
+            pass
+        with pm.span("b"):
+            pass
+        pm.count("c", 2)
+    s = pm.summary()
+    assert {k: v["count"] for k, v in s["spans"].items()} == {"a": 1, "b": 1}
+    assert s["counters"] == {"c": 2}
     report = pm.report().splitlines()
-    assert report[0].split() == ["section", "total", "s", "count", "mean", "ms"]
-    assert report[-1].startswith("host RSS:") and len(report) == 4
+    assert report[0].split() == ["span", "count", "total", "s", "self", "s", "device", "s",
+                                 "mean", "ms"]
+    assert sorted(line.split()[0] for line in report[1:3]) == ["a", "b"]
+    assert report[3].split() == ["c", "2"]
+    assert report[-1].startswith("host RSS:") and len(report) == 5
     mm = tmon.MemoryMonitor()
     snap = mm.snapshot("x")
     assert sorted(snap) == ["host_mb", "t", "tag"] and snap["host_mb"] > 0
