@@ -18,6 +18,23 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+def device_constant(values, dtype, device) -> torch.Tensor:
+    """The 1-D tensor ``values`` on ``device``. While the current stream
+    captures a CUDA graph, :func:`filled`: the capture refuses
+    ``torch.tensor``'s copy from host memory. Otherwise that copy, which
+    costs the host less (on an H100, 20.9 µs a 6-vector against 70.5, and
+    ~2% of a B=128 train step)."""
+    if torch.device(device).type == "cuda" and torch.cuda.is_current_stream_capturing():
+        return filled(values, dtype, device)
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
+def filled(values, dtype, device) -> torch.Tensor:
+    """The 1-D tensor ``values`` made on ``device`` by one fill kernel a
+    value, each rounded to ``dtype`` as ``torch.tensor`` rounds it."""
+    return torch.stack([torch.full((), v, dtype=dtype, device=device) for v in values])
+
+
 def to_host(x) -> np.ndarray:
     """A tensor (on any device) or an array-like as a numpy array: how the
     host-side numpy modules read a spec's tensors."""

@@ -41,6 +41,8 @@ import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
+from smilify_tpu_torch._device import device_constant
+
 # torchvision/timm normalization constants (inputs are [0,1] RGB)
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -55,8 +57,8 @@ class BackboneFeatures(NamedTuple):
 
 
 def normalize_imagenet(x: torch.Tensor) -> torch.Tensor:
-    mean = torch.tensor(IMAGENET_MEAN, dtype=x.dtype, device=x.device)
-    std = torch.tensor(IMAGENET_STD, dtype=x.dtype, device=x.device)
+    mean = device_constant(IMAGENET_MEAN, x.dtype, x.device)
+    std = device_constant(IMAGENET_STD, x.dtype, x.device)
     return (x - mean) / std
 
 

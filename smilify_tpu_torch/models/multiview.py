@@ -29,6 +29,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from smilify_tpu_torch._device import device_constant
 from smilify_tpu_torch.core.rotations import robust_rotation_6d_to_matrix
 from smilify_tpu_torch.core.spec import ModelSpec
 from smilify_tpu_torch.models.backbones import BackboneFeatures, create_backbone, flax_init_
@@ -140,8 +141,8 @@ class CameraHead(nn.Module):
         trans = self.Dense_4(x)
         if self.delta_mode and init_fov is not None:
             return init_fov + fov_raw, init_rot6d + rot6d, init_trans + trans
-        ident6 = torch.tensor([1.0, 0, 0, 0, 1.0, 0], dtype=x.dtype, device=x.device)
-        dist = torch.tensor([0.0, 0.0, 2.7], dtype=x.dtype, device=x.device)
+        ident6 = device_constant((1.0, 0, 0, 0, 1.0, 0), x.dtype, x.device)
+        dist = device_constant((0.0, 0.0, 2.7), x.dtype, x.device)
         return 60.0 + fov_raw, rot6d + ident6, trans + dist
 
 
@@ -225,10 +226,10 @@ def decode_multiview_predictions(cfg: MultiViewConfig, raw, spec: Optional[Model
     ref = raw["global_rot"]
     # placeholders for the single-view decode's camera groups
     body_raw.setdefault("fov", torch.full((B, 1), 60.0, dtype=ref.dtype, device=ref.device))
-    body_raw.setdefault("cam_rot", torch.tensor([1.0, 0, 0, 0, 1.0, 0, 0, 0, 1.0], dtype=ref.dtype,
-                                                device=ref.device).expand(B, 9))
-    body_raw.setdefault("cam_trans", torch.tensor([0.0, 0, 2.7], dtype=ref.dtype,
-                                                  device=ref.device).expand(B, 3))
+    body_raw.setdefault("cam_rot", device_constant((1.0, 0, 0, 0, 1.0, 0, 0, 0, 1.0), ref.dtype,
+                                                   ref.device).expand(B, 9))
+    body_raw.setdefault("cam_trans", device_constant((0.0, 0, 2.7), ref.dtype,
+                                                     ref.device).expand(B, 3))
     preds = decode_predictions(cfg, body_raw, spec)
     preds["view_fov"] = raw["cam_fov"]
     preds["view_cam_rot"] = robust_rotation_6d_to_matrix(raw["cam_rot6d"])
