@@ -47,6 +47,7 @@ from smilify_tpu_torch.models.regressor import (
 )
 from smilify_tpu_torch.models.transformer_decoder import MultiHeadDotProductAttention, _layer_norm
 from smilify_tpu_torch.render.cameras import triangulate_dlt
+from smilify_tpu_torch.utils import monitoring
 
 MULTIVIEW_DEFAULT_LOSS_WEIGHTS = dict(
     DEFAULT_LOSS_WEIGHTS,
@@ -149,13 +150,18 @@ class CameraHead(nn.Module):
 def _backbone_chunks(backbone, flat: torch.Tensor, chunk: Optional[int]) -> BackboneFeatures:
     """The backbone over ``flat`` in chunks of ``chunk`` images, the last
     zero-padded to full size (as the JAX package pads it); the padding's
-    outputs are dropped."""
+    outputs are dropped. Counts ``model.backbone.images`` (the padding
+    included) and ``model.backbone.chunks``."""
     n = flat.shape[0]
     if not chunk or chunk >= n:
+        monitoring.count("model.backbone.images", n)
+        monitoring.count("model.backbone.chunks")
         return backbone(flat)
     pad = (-n) % chunk
     if pad:
         flat = torch.cat([flat, flat.new_zeros((pad,) + flat.shape[1:])])
+    monitoring.count("model.backbone.images", flat.shape[0])
+    monitoring.count("model.backbone.chunks", flat.shape[0] // chunk)
     parts = [backbone(flat[i:i + chunk]) for i in range(0, flat.shape[0], chunk)]
     return BackboneFeatures(*(torch.cat(xs)[:n] if xs[0] is not None else None
                               for xs in zip(*parts)))
@@ -164,7 +170,10 @@ def _backbone_chunks(backbone, flat: torch.Tensor, chunk: Optional[int]) -> Back
 class MultiViewSMILRegressor(nn.Module):
     """images (B, V, H, W, 3) + view_mask (B, V) + camera ids (B, V) →
     (raw parameter groups, IEF history); raw adds cam_fov (B, V), cam_rot6d
-    (B, V, 6) and cam_trans (B, V, 3)."""
+    (B, V, 6) and cam_trans (B, V, 3). Timed as the spans ``model.backbone``
+    (every view of the batch, chunked), ``model.fusion`` (the view
+    embeddings and the cross-view fusion), ``model.head`` (the IEF body
+    head over all views' tokens) and ``model.camera_head``."""
 
     def __init__(self, config: MultiViewConfig, img_size: int = 224):
         super().__init__()
@@ -183,29 +192,33 @@ class MultiViewSMILRegressor(nn.Module):
         cfg = self.config
         B, V = images.shape[:2]
         flat = images.reshape((B * V,) + images.shape[2:])
-        with backbone_autocast(cfg, images.device):
+        with monitoring.span("model.backbone"), backbone_autocast(cfg, images.device):
             feats = _backbone_chunks(self.backbone, flat, cfg.backbone_chunk_size)
         with float32_region(images.device):
-            pooled = feats.pooled.float().reshape(B, V, -1)
-            T = feats.tokens.shape[1]
-            tokens = feats.tokens.float().reshape(B, V, T, -1)
+            with monitoring.span("model.fusion"):
+                pooled = feats.pooled.float().reshape(B, V, -1)
+                T = feats.tokens.shape[1]
+                tokens = feats.tokens.float().reshape(B, V, T, -1)
 
-            view_embed = self.view_embeddings(
-                torch.clamp(camera_ids.long(), 0, cfg.num_canonical_cameras - 1))
-            pooled = pooled + view_embed
-            tokens = tokens + view_embed[:, :, None, :]
+                view_embed = self.view_embeddings(
+                    torch.clamp(camera_ids.long(), 0, cfg.num_canonical_cameras - 1))
+                pooled = pooled + view_embed
+                tokens = tokens + view_embed[:, :, None, :]
 
-            _, fused_pooled = self.cross_view_fusion(pooled, view_mask.bool())
-            raw_body, history = self.body_head(tokens.reshape(B, V * T, -1))
+                _, fused_pooled = self.cross_view_fusion(pooled, view_mask.bool())
+            with monitoring.span("model.head"):
+                raw_body, history = self.body_head(tokens.reshape(B, V * T, -1))
 
             delta = cfg.camera_delta_mode and gt_cameras
-            fov, rot6d, trans = self.camera_head(
-                torch.cat([pooled, fused_pooled[:, None].expand(B, V, fused_pooled.shape[-1])], dim=-1),
-                view_embed,
-                gt_cameras.get("fov") if delta else None,
-                gt_cameras.get("rot6d") if delta else None,
-                gt_cameras.get("trans") if delta else None,
-            )
+            with monitoring.span("model.camera_head"):
+                fov, rot6d, trans = self.camera_head(
+                    torch.cat([pooled, fused_pooled[:, None].expand(B, V, fused_pooled.shape[-1])],
+                              dim=-1),
+                    view_embed,
+                    gt_cameras.get("fov") if delta else None,
+                    gt_cameras.get("rot6d") if delta else None,
+                    gt_cameras.get("trans") if delta else None,
+                )
         raw = dict(raw_body)
         raw["cam_fov"] = fov
         raw["cam_rot6d"] = rot6d
@@ -326,18 +339,19 @@ def compute_multiview_batch_loss(
                 joints3d, targets["keypoints_3d"], mask3d)
 
         if w.get("triangulation_consistency", 0) > 0 and "keypoints_2d" in targets:
-            P = view_projection_matrices(preds)                 # (B, V, 4, 4)
-            H, W = image_size
-            # normalized (y, x) → NDC (x, y): the screen transform inverted
-            kp = targets["keypoints_2d"]
-            s = min(H, W)
-            ndc = torch.stack([(W - 1.0 - 2.0 * kp[..., 1] * W) / s,
-                               (H - 1.0 - 2.0 * kp[..., 0] * H) / s], dim=-1)
-            vis = targets.get("kp_visibility")
-            mask3 = vm[:, :, None] * (vis if vis is not None else 1.0)
-            tri = triangulate_dlt(ndc, P, mask3)                   # (B, J, 3)
-            objs["triangulation_consistency"] = w["triangulation_consistency"] * _masked_mse(
-                tri, joints3d)
+            with monitoring.span("train.triangulate"):
+                P = view_projection_matrices(preds)                 # (B, V, 4, 4)
+                H, W = image_size
+                # normalized (y, x) → NDC (x, y): the screen transform inverted
+                kp = targets["keypoints_2d"]
+                s = min(H, W)
+                ndc = torch.stack([(W - 1.0 - 2.0 * kp[..., 1] * W) / s,
+                                   (H - 1.0 - 2.0 * kp[..., 0] * H) / s], dim=-1)
+                vis = targets.get("kp_visibility")
+                mask3 = vm[:, :, None] * (vis if vis is not None else 1.0)
+                tri = triangulate_dlt(ndc, P, mask3)                   # (B, J, 3)
+                objs["triangulation_consistency"] = w["triangulation_consistency"] * _masked_mse(
+                    tri, joints3d)
 
     if w.get("joint_angle_regularization", 0) > 0:
         objs["joint_angle_regularization"] = w["joint_angle_regularization"] * torch.mean(

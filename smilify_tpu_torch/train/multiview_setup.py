@@ -45,9 +45,11 @@ def gt_camera_init(batch: Dict[str, torch.Tensor], image_size: Tuple[int, int]):
 def make_multiview_apply_fn(rcfg, spec, image_size: Tuple[int, int]):
     """``apply_fn(model, batch, train) -> preds`` for ``make_train_step`` /
     ``make_eval_step``: the decoded predictions and the IEF history. With
-    the camera head's delta mode on, the batch's cameras initialize it."""
+    the camera head's delta mode on, the batch's cameras initialize it. The
+    decode is timed as the span ``model.decode``."""
     from smilify_tpu_torch.models.multiview import decode_multiview_predictions
     from smilify_tpu_torch.models.regressor import float32_region
+    from smilify_tpu_torch.utils import monitoring
 
     def apply_fn(model, batch, train):
         gt_cams = None
@@ -55,7 +57,7 @@ def make_multiview_apply_fn(rcfg, spec, image_size: Tuple[int, int]):
             gt_cams = gt_camera_init(batch, image_size)
         raw, hist = model(batch["images"], batch["view_mask"], batch["camera_indices"],
                           gt_cameras=gt_cams)
-        with float32_region(batch["images"].device):
+        with monitoring.span("model.decode"), float32_region(batch["images"].device):
             preds = decode_multiview_predictions(rcfg, raw, spec)
         preds["ief_history"] = hist
         return preds
