@@ -29,6 +29,30 @@ def device_constant(values, dtype, device) -> torch.Tensor:
     return torch.tensor(values, dtype=dtype, device=device)
 
 
+_SHARED = {}        # (values, dtype, device) → the tensor shared_constant made
+
+
+def shared_constant(values, dtype, device) -> torch.Tensor:
+    """:func:`device_constant`'s tensor, made once per (values, dtype,
+    device) and kept, so that later calls, and CUDA graphs captured after
+    the first, copy nothing from host memory (a blocking copy the card
+    waits on). One tensor serves every caller: for a constant that is only
+    read, never written nor returned as a result. While a graph captures,
+    a constant not made yet is made inside the graph and not kept; while
+    ``torch.export`` or ``torch.compile`` traces, each call makes its own
+    (their tensors stand for values, and must not be kept)."""
+    if torch.compiler.is_compiling():
+        return device_constant(values, dtype, device)
+    device = torch.device(device)
+    key = (tuple(values), dtype, device)
+    const = _SHARED.get(key)
+    if const is None:
+        const = device_constant(values, dtype, device)
+        if not (device.type == "cuda" and torch.cuda.is_current_stream_capturing()):
+            _SHARED[key] = const
+    return const
+
+
 def filled(values, dtype, device) -> torch.Tensor:
     """The 1-D tensor ``values`` made on ``device`` by one fill kernel a
     value, each rounded to ``dtype`` as ``torch.tensor`` rounds it."""

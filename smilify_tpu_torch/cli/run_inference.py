@@ -97,45 +97,14 @@ def load_model_from_checkpoint(ckpt_path: str, device="cuda"):
     return model, cfg, rcfg, spec, meta
 
 
-def graph_key(inputs) -> tuple:
-    """Whether a call may replay another's CUDA graph: the same device,
-    shape and dtype of every input tensor."""
-    return tuple((x.device, tuple(x.shape), x.dtype) for x in inputs)
-
-
-class _Graphed:
-    """``fn(inputs)`` → dict of tensors, captured once into a CUDA graph over
-    static copies of ``inputs``. A call copies its inputs into them,
-    replays, and returns clones of the static outputs, so what a caller
-    keeps is never overwritten by a later call."""
-
-    def __init__(self, fn, inputs):
-        self.inputs = [x.clone() for x in inputs]
-        self.graph = torch.cuda.CUDAGraph()
-        # autocast's cast cache off while capturing: a cast cached outside
-        # the graph's memory pool could be freed under the graph
-        cache = torch.is_autocast_cache_enabled()
-        torch.set_autocast_cache_enabled(False)
-        try:
-            with torch.cuda.graph(self.graph, stream=torch.cuda.Stream(inputs[0].device)):
-                self.outputs = fn(self.inputs)
-        finally:
-            torch.set_autocast_cache_enabled(cache)
-
-    def __call__(self, inputs):
-        for static, x in zip(self.inputs, inputs):
-            static.copy_(x)
-        self.graph.replay()
-        return {k: v.clone() for k, v in self.outputs.items()}
-
-
 def predictor(model, rcfg, spec, multiview: bool):
     """``predict(batch)`` → decoded predictions for a batch of device
     tensors (``image``, or ``images``/``view_mask``/``camera_indices``).
 
     On a card a call replays a CUDA graph of the model and the decode once
-    its inputs' :func:`graph_key` has been seen: the key's first call runs
-    eagerly (cuDNN's choices, lazy set-up, the allocator), its second
+    its inputs' ``graph_key`` has been seen (``utils/graphs.py``'s
+    :class:`~smilify_tpu_torch.utils.graphs.Replayer`): the key's first call
+    runs eagerly (cuDNN's choices, lazy set-up, the allocator), its second
     captures the graph and replays it, later ones copy their inputs into
     the graph's and replay. The same kernels run on the same numbers either
     way, and every call returns tensors of its own. On the CPU every call
@@ -143,35 +112,23 @@ def predictor(model, rcfg, spec, multiview: bool):
     ``infer.graph.captures``, ``infer.graph.replays``."""
     from smilify_tpu_torch.models.multiview import decode_multiview_predictions
     from smilify_tpu_torch.models.regressor import decode_predictions, float32_region
+    from smilify_tpu_torch.utils.graphs import Replayer
 
     names = ("images", "view_mask", "camera_indices") if multiview else ("image",)
-    graphs = {}     # graph_key → None after the key's eager call, then its _Graphed
 
     def forward(inputs):
-        raw, _ = model(*inputs)
+        raw, _ = model(*(inputs[k] for k in names))
         with monitoring.span("model.decode"), float32_region(spec.device):
             if multiview:
                 return decode_multiview_predictions(rcfg, raw, spec)
             return decode_predictions(rcfg, raw, spec)
 
+    replay = Replayer(forward, "infer.graph")
+
     @torch.no_grad()
     def predict(batch):
-        inputs = [batch[k] for k in names]
-        dev = inputs[0].device
         with monitoring.span("infer.predict"):
-            key = graph_key(inputs)
-            if dev.type != "cuda" or key not in graphs:
-                if dev.type == "cuda":
-                    graphs[key] = None
-                monitoring.count("infer.graph.eager")
-                return forward(inputs)
-            with torch.cuda.device(dev):
-                if graphs[key] is None:
-                    monitoring.count("infer.graph.captures")
-                    graphs[key] = _Graphed(forward, inputs)
-                else:
-                    monitoring.count("infer.graph.replays")
-                return graphs[key](inputs)
+            return replay({k: batch[k] for k in names})
 
     return predict
 

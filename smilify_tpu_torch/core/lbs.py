@@ -24,11 +24,13 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from smilify_tpu_torch._device import shared_constant
 from smilify_tpu_torch.core.rotations import rodrigues
 from smilify_tpu_torch.core.spec import LEGACY_DOG_EXTRA_VERTEX_IDS, ModelSpec
 
 # Unreal convention: per-joint translation offsets have their y axis flipped.
 _UNREAL_Y_FLIP = (1.0, -1.0, 1.0)
+_BOTTOM_ROW = (0.0, 0.0, 0.0, 1.0)     # of each joint's homogeneous 4x4
 
 
 class SmilOutputs(NamedTuple):
@@ -115,7 +117,7 @@ def global_rigid_transformation(
         (N, J, 3), dtype=dtype, device=device)
     inv_scales = torch.ones_like(scales) if propagate_scaling else 1.0 / scales
     if trans_offsets is not None:
-        offs = trans_offsets * torch.tensor(_UNREAL_Y_FLIP, dtype=dtype, device=device)
+        offs = trans_offsets * shared_constant(_UNREAL_Y_FLIP, dtype, device)
     else:
         offs = torch.zeros((N, J, 3), dtype=dtype, device=device)
 
@@ -128,7 +130,7 @@ def global_rigid_transformation(
     rot_local = torch.cat([Rs[:, :1], rot_scaled[:, 1:]], dim=1)
     off_local = torch.cat([Js[:, :1], j_offsets[:, 1:]], dim=1)
     tops = torch.cat([rot_local, off_local[..., None]], dim=-1)           # (N, J, 3, 4)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=dtype, device=device)
+    bottom = shared_constant(_BOTTOM_ROW, dtype, device)
     A_local = torch.cat([tops, bottom.expand(N, J, 1, 4)], dim=-2)       # (N, J, 4, 4)
 
     # pointer jumping: log₂(depth) rounds of batched 4x4 chain products

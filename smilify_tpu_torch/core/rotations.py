@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from smilify_tpu_torch._device import device_constant
+from smilify_tpu_torch._device import shared_constant
 
 
 def rodrigues(theta: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
@@ -138,7 +138,7 @@ def robust_rotation_6d_to_matrix(d6: torch.Tensor) -> torch.Tensor:
     column of norm < 1e-6 falls back to the identity."""
     d6 = torch.nan_to_num(d6, nan=0.0, posinf=0.0, neginf=0.0)
     norm1 = torch.linalg.vector_norm(d6[..., :3], dim=-1, keepdim=True)
-    ident6 = device_constant((1.0, 0, 0, 0, 1.0, 0), d6.dtype, d6.device).expand_as(d6)
+    ident6 = shared_constant((1.0, 0, 0, 0, 1.0, 0), d6.dtype, d6.device).expand_as(d6)
     return rotation_6d_to_matrix(torch.where(norm1 < 1e-6, ident6, d6))
 
 

@@ -41,7 +41,7 @@ import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
-from smilify_tpu_torch._device import device_constant
+from smilify_tpu_torch._device import shared_constant
 
 # torchvision/timm normalization constants (inputs are [0,1] RGB)
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -57,8 +57,8 @@ class BackboneFeatures(NamedTuple):
 
 
 def normalize_imagenet(x: torch.Tensor) -> torch.Tensor:
-    mean = device_constant(IMAGENET_MEAN, x.dtype, x.device)
-    std = device_constant(IMAGENET_STD, x.dtype, x.device)
+    mean = shared_constant(IMAGENET_MEAN, x.dtype, x.device)
+    std = shared_constant(IMAGENET_STD, x.dtype, x.device)
     return (x - mean) / std
 
 

@@ -29,7 +29,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from smilify_tpu_torch._device import device_constant
+from smilify_tpu_torch._device import device_constant, shared_constant
 from smilify_tpu_torch.core.rotations import robust_rotation_6d_to_matrix
 from smilify_tpu_torch.core.spec import ModelSpec
 from smilify_tpu_torch.models.backbones import BackboneFeatures, create_backbone, flax_init_
@@ -142,8 +142,8 @@ class CameraHead(nn.Module):
         trans = self.Dense_4(x)
         if self.delta_mode and init_fov is not None:
             return init_fov + fov_raw, init_rot6d + rot6d, init_trans + trans
-        ident6 = device_constant((1.0, 0, 0, 0, 1.0, 0), x.dtype, x.device)
-        dist = device_constant((0.0, 0.0, 2.7), x.dtype, x.device)
+        ident6 = shared_constant((1.0, 0, 0, 0, 1.0, 0), x.dtype, x.device)
+        dist = shared_constant((0.0, 0.0, 2.7), x.dtype, x.device)
         return 60.0 + fov_raw, rot6d + ident6, trans + dist
 
 

@@ -29,6 +29,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn as nn
 
+from smilify_tpu_torch._device import shared_constant
 from smilify_tpu_torch.core.lbs import smil_forward
 from smilify_tpu_torch.core.rotations import (
     axis_angle_to_matrix,
@@ -38,7 +39,7 @@ from smilify_tpu_torch.core.rotations import (
 from smilify_tpu_torch.core.spec import ModelSpec
 from smilify_tpu_torch.models.backbones import create_backbone, flax_init_
 from smilify_tpu_torch.models.transformer_decoder import MLPHead, SMILTransformerDecoderHead
-from smilify_tpu_torch.render.cameras import default_camera
+from smilify_tpu_torch.render.cameras import FoVCamera, default_camera
 from smilify_tpu_torch.utils import monitoring
 
 DEFAULT_LOSS_WEIGHTS: Dict[str, float] = {
@@ -259,8 +260,8 @@ def forward_model(spec: ModelSpec, preds: Dict[str, torch.Tensor],
 def batched_camera(R: torch.Tensor, T: torch.Tensor, fov: torch.Tensor):
     """A :class:`FoVCamera` over leading batch dims: R (..., 3, 3), T (..., 3)
     and fov (...) shaped to broadcast against points (..., K, 3)."""
-    cam = default_camera(device=R.device)
-    return cam.replace(R=R, T=T[..., None, :], fov=fov[..., None])
+    aspect = shared_constant((1.0,), torch.float32, R.device).reshape(())
+    return FoVCamera(R=R, T=T[..., None, :], fov=fov[..., None], aspect_ratio=aspect)
 
 
 def project_to_camera(preds: Dict[str, torch.Tensor], points: torch.Tensor,
@@ -271,7 +272,7 @@ def project_to_camera(preds: Dict[str, torch.Tensor], points: torch.Tensor,
     cam = batched_camera(preds["cam_rot"], preds["cam_trans"], preds["fov"])
     # eps guards points at the camera plane
     yx = cam.project_points_yx(points, (H, W), eps=1e-4)
-    yx = yx / torch.tensor([H, W], dtype=yx.dtype, device=yx.device)
+    yx = yx / shared_constant((H, W), yx.dtype, yx.device)
     return torch.nan_to_num(torch.clamp(yx, -10.0, 10.0))
 
 

@@ -92,9 +92,10 @@ class FoVCamera:
         self, points: torch.Tensor, image_size: Tuple[int, int], eps: Optional[float] = None
     ) -> torch.Tensor:
         """World points → (row, col) pixel coordinates — the fitter's keypoint
-        convention (the reference renderer swaps to (y, x))."""
+        convention (the reference renderer swaps to (y, x)). A flip, not a
+        list index, which a card would copy from host memory each call."""
         scr = self.transform_points_screen(points, image_size, eps=eps)
-        return scr[..., [1, 0]]
+        return scr[..., :2].flip(-1)
 
     def projection_matrix(self) -> torch.Tensor:
         """Column-vector 4×4 perspective matrix K with p_clip = K @ p_view."""

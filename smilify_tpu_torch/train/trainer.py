@@ -18,8 +18,9 @@
   :class:`SubsetDataset` and :class:`DeviceDataCache`.
 
 A step reads nothing back to the host: the non-finite test, the clip and
-the skip are device tensors, the skip through the fused Adam kernel's
-``found_inf`` flag.
+the skip are device tensors updated in place, the skip through the fused
+Adam kernel's ``found_inf`` flag. So on one card the whole step replays as
+a CUDA graph (:func:`make_train_step`).
 
 Data-parallel training over a ``('data',)`` mesh (:func:`data_mesh`, one
 rank a process): the model runs inside ``DistributedDataParallel`` over the
@@ -49,6 +50,7 @@ import torch
 
 from smilify_tpu_torch._device import resolve_device
 from smilify_tpu_torch.utils import monitoring
+from smilify_tpu_torch.utils.graphs import Replayer
 
 # numpy dtype → the 32-bit one JAX's default mode stores (the JAX cache's columns)
 _NARROW = {np.dtype(np.float64): np.float32, np.dtype(np.int64): np.int32,
@@ -234,6 +236,9 @@ class Optimizer:
 
     The test and the skip stay on the device: the fused kernel skips a step
     whose ``found_inf`` flag is 1, so a step reads nothing back to the host.
+    Adam is built ``capturable`` and ``notfinite_count``, ``total_notfinite``,
+    ``grad_norm`` and the ``found_inf`` flag are tensors made once and
+    updated in place, so a replayed CUDA graph of the step advances them.
     """
 
     def __init__(self, model: torch.nn.Module, cfg, lr: float, backbone_frozen: bool):
@@ -259,13 +264,16 @@ class Optimizer:
             raise ValueError(f"unknown optimizer_type '{cfg.optimizer.optimizer_type}'")
         param_groups = [{"params": ps, "lr": r} for ps, r in (
             (groups["head"], lr), (groups["backbone"], lr * cfg.model.backbone_lr_multiplier)) if ps]
-        self.inner = (make(param_groups, lr=lr, betas=ADAM_BETAS, eps=ADAM_EPS, fused=True, **kw)
+        self.inner = (make(param_groups, lr=lr, betas=ADAM_BETAS, eps=ADAM_EPS, fused=True,
+                           capturable=True, **kw)
                       if param_groups else None)
         self.max_norm = float(cfg.optimizer.gradient_clip_norm)
         dev = self.params[0].device
         self.notfinite_count = torch.zeros((), dtype=torch.int32, device=dev)
         self.total_notfinite = torch.zeros((), dtype=torch.int32, device=dev)
         self.grad_norm = torch.zeros((), device=dev)
+        if self.inner is not None:
+            self.inner.found_inf = torch.zeros((), device=dev)
 
     @torch.no_grad()
     def step(self) -> None:
@@ -283,13 +291,13 @@ class Optimizer:
         # under DistributedDataParallel the gradients read here are already
         # the all-reduced ones, the same on every rank: every rank takes the
         # same decision and the replicas stay equal
-        self.notfinite_count = torch.where(finite, torch.zeros_like(self.notfinite_count),
-                                           self.notfinite_count + 1)
-        self.total_notfinite = self.total_notfinite + (~finite).to(torch.int32)
+        self.notfinite_count.copy_(torch.where(finite, torch.zeros_like(self.notfinite_count),
+                                               self.notfinite_count + 1))
+        self.total_notfinite.add_((~finite).to(torch.int32))
         apply = finite | (self.notfinite_count > MAX_CONSECUTIVE_ERRORS)
-        self.grad_norm = g_norm
+        self.grad_norm.copy_(g_norm)
         if self.inner is not None:
-            self.inner.found_inf = (~apply).to(torch.float32)
+            self.inner.found_inf.copy_(~apply)
             self.inner.step()
 
     def adam_step(self) -> torch.Tensor:
@@ -316,7 +324,8 @@ class PlainAdam:
         self.params = list(model.parameters())
         make, kw = (torch.optim.Adam, {}) if weight_decay is None else (
             torch.optim.AdamW, {"weight_decay": weight_decay})
-        self.inner = make(self.params, lr=lr, betas=ADAM_BETAS, eps=ADAM_EPS, fused=True, **kw)
+        self.inner = make(self.params, lr=lr, betas=ADAM_BETAS, eps=ADAM_EPS, fused=True,
+                          capturable=True, **kw)
 
     def step(self) -> None:
         for p in self.params:
@@ -350,7 +359,8 @@ def _split_batch(batch, n: int) -> List:
 
 def make_train_step(model: torch.nn.Module, apply_fn: Callable, loss_fn: Callable,
                     opt: Optimizer, accum_steps: int = 1, mesh=None):
-    """``step(batch) -> (loss, components)``, both device tensors.
+    """``step(batch) -> (loss, components)``, both device tensors of the
+    call's own.
 
     ``apply_fn(model, batch, train) -> preds`` (the model in train mode
     advances its BatchNorm statistics in place); ``loss_fn(preds, batch) ->
@@ -361,12 +371,26 @@ def make_train_step(model: torch.nn.Module, apply_fn: Callable, loss_fn: Callabl
     (non-finite) step too, as the JAX step returns its new statistics
     unconditionally.
 
+    On one card the whole step (forward, loss, backward, the statistics and
+    the optimizer) replays as a CUDA graph once a batch's ``graph_key``
+    has been seen twice (``utils/graphs.py``'s
+    :class:`~smilify_tpu_torch.utils.graphs.Replayer`): the key's first call
+    runs eagerly, its second eagerly under torch's sync debug mode, and
+    unless that call waited on the host (a read-back, a blocking copy), the
+    third captures the graph; the gradients are assigned inside the
+    graph's memory. The same kernels run on the same numbers either way.
+    The spans inside the step (``model.*``, ``train.loss``,
+    ``train.backward``, ``train.update``) record on eager and capturing
+    calls only. Counted while recording: ``train.graph.eager``,
+    ``train.graph.captures``, ``train.graph.replays``. A step built anew
+    brings its own graphs, freed with it.
+
     With a ``('data',)`` ``mesh`` of several ranks (:func:`data_mesh`) the
     batch is this rank's rows of the global batch (:func:`shard_batch`);
     the model runs inside ``DistributedDataParallel``
     (:func:`data_parallel`), the gradients are all-reduced once a step (the
     micro-batches but the last run under ``no_sync``), and the loss and its
-    components are averaged over the ranks."""
+    components are averaged over the ranks. Such a step runs eagerly."""
     net, group = data_parallel(model, mesh)
 
     def compute(mb):
@@ -377,31 +401,39 @@ def make_train_step(model: torch.nn.Module, apply_fn: Callable, loss_fn: Callabl
             total.backward()
         return total.detach(), {k: v.detach() for k, v in objs.items()}
 
+    def work(batch):
+        # gradients assigned anew by the backward (inside a capture: in the graph's memory)
+        for p in opt.params:
+            p.grad = None
+        if accum_steps > 1:
+            mbs = _split_batch(batch, accum_steps)
+            outs = []
+            for i, mb in enumerate(mbs):
+                quiet = group is not None and i < len(mbs) - 1
+                with net.no_sync() if quiet else contextlib.nullcontext():
+                    outs.append(compute(mb))
+            torch._foreach_div_([p.grad for p in opt.params if p.grad is not None],
+                                float(accum_steps))
+            loss = sum(loss for loss, _ in outs) / accum_steps
+            objs = {k: torch.stack([o[k] for _, o in outs]).mean() for k in outs[0][1]}
+        else:
+            loss, objs = compute(batch)
+        with monitoring.span("train.update"):
+            opt.step()
+        if group is not None:
+            names = list(objs)
+            loss, *vals = _mean_over(group, loss, *(objs[k] for k in names))
+            objs = dict(zip(names, vals))
+        return loss, objs
+
+    replay = Replayer(work, "train.graph", check_syncs=True)
+
     def step(batch):
         with monitoring.span("train.step"):
             model.train()
-            for p in opt.params:
-                p.grad = None
-            if accum_steps > 1:
-                mbs = _split_batch(batch, accum_steps)
-                outs = []
-                for i, mb in enumerate(mbs):
-                    quiet = group is not None and i < len(mbs) - 1
-                    with net.no_sync() if quiet else contextlib.nullcontext():
-                        outs.append(compute(mb))
-                torch._foreach_div_([p.grad for p in opt.params if p.grad is not None],
-                                    float(accum_steps))
-                loss = sum(loss for loss, _ in outs) / accum_steps
-                objs = {k: torch.stack([o[k] for _, o in outs]).mean() for k in outs[0][1]}
-            else:
-                loss, objs = compute(batch)
-            with monitoring.span("train.update"):
-                opt.step()
-            if group is not None:
-                names = list(objs)
-                loss, *vals = _mean_over(group, loss, *(objs[k] for k in names))
-                objs = dict(zip(names, vals))
-            return loss, objs
+            if group is not None or not all(isinstance(v, torch.Tensor) for v in batch.values()):
+                return replay.eager(batch)
+            return replay(batch)
 
     return step
 

@@ -2,8 +2,9 @@
 
 On the CPU every call runs eagerly: the outputs are the model's and the
 decode's as called directly, the calls count ``infer.graph.eager`` and
-nothing else, no two calls' outputs share memory, and :func:`graph_key`
-tells apart batches of another shape, dtype or device. ``filled`` (how
+nothing else, no two calls' outputs share memory, and ``utils/graphs.py``'s
+:func:`graph_key` tells apart batches of another shape, dtype, device or
+input name. ``filled`` (how
 ``device_constant`` makes a constant while a graph captures, without a
 host copy) rounds as ``torch.tensor`` does.
 
@@ -15,8 +16,8 @@ machine has another package of that name installed)::
         t.__path__ = ['tests']; sys.modules['tests'] = t; sys.exit(pytest.main( \\
         ['tests/test_torch_predictor_graph.py', '--noconftest', '-m', 'card', '-v']))"
 
-a key's first call runs eagerly, its second captures and later ones
-replay; each graphed output is bitwise equal to an eager call's on the
+a key's first call runs eagerly, its second captures and replays and later
+ones replay; each graphed output is bitwise equal to an eager call's on the
 same batch, outputs already returned stay as they were, and a short last
 batch runs eagerly. Single-view (ResNet-50 under bf16 autocast) and
 multi-view (``unet_micro`` under bf16 autocast, three views).
@@ -35,7 +36,7 @@ from smilify_tpu_torch.models.regressor import decode_predictions, float32_regio
 from smilify_tpu_torch.models.weight_port import build_model
 from smilify_tpu_torch.tools.synthetic_data import write_model_pkl
 from smilify_tpu_torch.train import config as tconfig
-from smilify_tpu_torch.utils import monitoring
+from smilify_tpu_torch.utils import graphs, monitoring
 
 MODES = ["single_view", "multi_view"]
 VIEWS = 3
@@ -140,19 +141,22 @@ def test_outputs_of_two_calls_do_not_alias(tmp_path, mode):
     assert not ptrs & {v.untyped_storage().data_ptr() for v in second.values()}
 
 
-@pytest.mark.parametrize("change", ["same", "shape", "dtype", "device", "another_input"])
+@pytest.mark.parametrize("change", ["same", "shape", "dtype", "device", "another_input",
+                                    "another_name"])
 def test_graph_key_separates_batches(change):
-    base = [torch.zeros(4, 8, 8, 3), torch.ones(4, 3, dtype=torch.bool)]
+    image, mask = torch.zeros(4, 8, 8, 3), torch.ones(4, 3, dtype=torch.bool)
+    base = {"image": image, "mask": mask}
     other = {
-        "same": [torch.ones(4, 8, 8, 3), torch.zeros(4, 3, dtype=torch.bool)],
-        "shape": [torch.zeros(3, 8, 8, 3), torch.ones(3, 3, dtype=torch.bool)],
-        "dtype": [torch.zeros(4, 8, 8, 3, dtype=torch.float64), base[1]],
-        "device": [torch.empty(4, 8, 8, 3, device="meta"), base[1]],
-        "another_input": [base[0], torch.ones(4, 3, dtype=torch.int64)],
+        "same": {"image": torch.ones(4, 8, 8, 3), "mask": torch.zeros(4, 3, dtype=torch.bool)},
+        "shape": {"image": torch.zeros(3, 8, 8, 3), "mask": torch.ones(3, 3, dtype=torch.bool)},
+        "dtype": {"image": torch.zeros(4, 8, 8, 3, dtype=torch.float64), "mask": mask},
+        "device": {"image": torch.empty(4, 8, 8, 3, device="meta"), "mask": mask},
+        "another_input": {"image": image, "mask": torch.ones(4, 3, dtype=torch.int64)},
+        "another_name": {"image": image, "view_mask": mask},
     }[change]
-    key = run_inference.graph_key
+    key = graphs.graph_key
     assert (key(base) == key(other)) == (change == "same")
-    assert key(base) == key([x.clone() for x in base])
+    assert key(base) == key({k: x.clone() for k, x in base.items()})
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16, torch.float16])
@@ -185,14 +189,14 @@ def test_card_replay_is_bitwise_eager(tmp_path, card, mode):
     with monitoring.recording():
         outs = [predict(b) for b in batches]
         assert _counters() == {"infer.graph.eager": 1, "infer.graph.captures": 1,
-                               "infer.graph.replays": 2}
+                               "infer.graph.replays": 3}
         kept = [{k: v.clone() for k, v in o.items()} for o in outs]
         short = _batch(mode, n - 1, res, card, 9)
         short_out = predict(short)
         assert _counters() == {"infer.graph.eager": 2, "infer.graph.captures": 1,
-                               "infer.graph.replays": 2}
+                               "infer.graph.replays": 3}
         again = predict(batches[1])
-        assert _counters()["infer.graph.replays"] == 3
+        assert _counters()["infer.graph.replays"] == 4
     monitoring.reset()
     torch.cuda.synchronize(card)
     for out, ref, keep in zip(outs, eager, kept):
