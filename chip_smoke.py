@@ -1404,15 +1404,13 @@ def _max_rel_gap(a: dict, b: dict) -> float:
     return gap
 
 
-def _serve_outputs(model, cfg, spec, inputs, multiview):
+def _serve_outputs(model, cfg, spec, inputs):
     """{decoded predictions, the raw IEF history as history_i} of one call."""
-    from smilify_tpu_torch.models.multiview import decode_multiview_predictions
-    from smilify_tpu_torch.models.regressor import decode_predictions, float32_region
+    from smilify_tpu_torch.models.predict import decoded, input_names, is_multiview
 
     with torch.no_grad():
-        raw, hist = model(*inputs)
-        with float32_region(inputs[0].device):
-            dec = (decode_multiview_predictions if multiview else decode_predictions)(cfg, raw, spec)
+        names = input_names(is_multiview(model))
+        dec, hist = decoded(model, cfg, spec, dict(zip(names, inputs)))
     dec.update({f"history_{i}": h for i, h in enumerate(hist)})
     return dec
 
@@ -1443,11 +1441,11 @@ def serving_parity(toy, dev):
             perturb_zero_params(model)
             host = (torch.from_numpy(rng.random((SERVE_B, SERVE_RES, SERVE_RES, 3), dtype=np.float32)),)
         cpu_model = copy.deepcopy(model).cpu().to(memory_format=torch.contiguous_format)
-        card = _serve_outputs(model, cfg, toy, tuple(x.to(dev) for x in host), multiview)
-        cpu = _serve_outputs(cpu_model, cfg, cpu_spec, host, multiview)
+        card = _serve_outputs(model, cfg, toy, tuple(x.to(dev) for x in host))
+        cpu = _serve_outputs(cpu_model, cfg, cpu_spec, host)
         gap = _max_rel_gap(card, cpu)
         model.config = dataclasses.replace(cfg, compute_dtype=torch.bfloat16)
-        bf16 = _serve_outputs(model, model.config, toy, tuple(x.to(dev) for x in host), multiview)
+        bf16 = _serve_outputs(model, model.config, toy, tuple(x.to(dev) for x in host))
         gap16 = _max_rel_gap(bf16, card)
         worst = max(card, key=lambda k: float((card[k].cpu() - cpu[k]).abs().max()))
         log(f"  {label}: card vs CPU float32 max |Δ| / max(1, |CPU|) = {gap:.3e} (worst in "
@@ -1479,6 +1477,7 @@ def serving_cli(toy, dev, work):
     from smilify_tpu_torch.cli import run_inference
     from smilify_tpu_torch.cli.train_regressor import build_dataset
     from smilify_tpu_torch.models.weight_port import build_model
+    from smilify_tpu_torch.serve import predictor
     from smilify_tpu_torch.tools.synthetic_data import write_model_pkl, write_replicant_sequence
     from smilify_tpu_torch.train.config import load_config, resolve_model_spec
     from smilify_tpu_torch.train.trainer import TrainState, save_checkpoint
@@ -1513,7 +1512,7 @@ def serving_cli(toy, dev, work):
     imgs = torch.from_numpy(np.stack([dataset[i]["image"] for i in range(SERVE_FRAMES)])).to(dev)
     # in run_inference's batches of 8: bf16 convolutions of another batch size
     # round differently (the bf16 gap of serving_parity)
-    predict = run_inference.predictor(model, rcfg, spec, False)
+    predict = predictor(model, rcfg, spec, False)
     parts = [predict({"image": imgs[i:i + 8]}) for i in range(0, SERVE_FRAMES, 8)]
     direct = {k: torch.cat([p[k] for p in parts]).cpu().numpy() for k in parts[0]}
     keys = [k for k in ("global_rot", "joint_rot", "trans", "betas", "fov", "cam_rot", "cam_trans")
@@ -1544,7 +1543,7 @@ def serving_cli(toy, dev, work):
     # changes the result (a bug)
     def decoded(m, sp, x, dtype, step):
         m.config = dataclasses.replace(rcfg, compute_dtype=dtype)
-        pred = run_inference.predictor(m, m.config, sp, False)
+        pred = predictor(m, m.config, sp, False)
         parts = [pred({"image": x[i:i + step]}) for i in range(0, SERVE_FRAMES, step)]
         m.config = rcfg
         return {k: torch.cat([p[k] for p in parts]).cpu() for k in parts[0]}
@@ -1596,10 +1595,8 @@ def serving_multiview_data(toy, dev):
     and held to its plain version at that shape) through DeviceDataCache
     batches into 5a's model, then BenchmarkAccumulator."""
     from smilify_tpu_torch.data.synthetic import synthesize_multiview
-    from smilify_tpu_torch.models.multiview import (
-        decode_multiview_predictions,
-        project_through_view_cameras,
-    )
+    from smilify_tpu_torch.models.multiview import project_through_view_cameras
+    from smilify_tpu_torch.models.predict import decoded
     from smilify_tpu_torch.models.regressor import float32_region, forward_model
     from smilify_tpu_torch.tools import bench_all
     from smilify_tpu_torch.train.benchmark import BenchmarkAccumulator
@@ -1627,9 +1624,9 @@ def serving_multiview_data(toy, dev):
     n = 0
     with torch.no_grad():
         for batch in cache.iterate(SERVE_MV_BATCH, np.random.default_rng(0), shuffle=False):
-            raw, _ = model(batch["images"], vm, cids)
+            preds, _ = decoded(model, cfg, toy, {"images": batch["images"], "view_mask": vm,
+                                                 "camera_indices": cids})
             with float32_region(dev):
-                preds = decode_multiview_predictions(cfg, raw, toy)
                 _, joints3d = forward_model(toy, preds)
                 kp2d = project_through_view_cameras(preds, joints3d, (SERVE_RES, SERVE_RES))
             gt2d = batch["keypoints_2d"].flip(-1).cpu().numpy() / SERVE_RES   # (x, y) px → (y, x)
@@ -1657,7 +1654,7 @@ def serving_bench_and_profile(spec, dev, card):
     """bench_all configs 4, 5a, 5b with short windows; then config 4 at
     B=PROFILE_B in bf16 under the profiler: busy share, top operations, the
     FLOPs its layers' shapes give and the mfu."""
-    from smilify_tpu_torch.models.regressor import decode_predictions, float32_region
+    from smilify_tpu_torch.models.predict import decoded
     from smilify_tpu_torch.tools import bench_all
 
     report = bench_all.run(spec, only=["config4_", "config5a", "config5b"], repeats=1,
@@ -1680,9 +1677,7 @@ def serving_bench_and_profile(spec, dev, card):
 
     @torch.no_grad()
     def step():
-        raw, _ = model(imgs)
-        with float32_region(dev):
-            return decode_predictions(cfg, raw, spec)
+        return decoded(model, cfg, spec, {"image": imgs})[0]
 
     for _ in range(3):
         step()
@@ -1887,11 +1882,11 @@ def learning_check(toy, dev, card):
     LEARN_SAMPLES synthesize_multiview samples at 224² (view 0) held in
     DeviceDataCache for LEARN_STEPS steps; step LEARN_NAN_AT gets a NaN
     target: it must move no parameter and not Adam's step count."""
-    from smilify_tpu_torch.cli.train_regressor import make_singleview_apply_fn
     from smilify_tpu_torch.data.synthetic import synthesize_multiview
     from smilify_tpu_torch.models.regressor import compute_batch_loss
     from smilify_tpu_torch.tools import bench_all
     from smilify_tpu_torch.train.config import load_config
+    from smilify_tpu_torch.train.singleview_setup import make_singleview_apply_fn
     from smilify_tpu_torch.train.trainer import DeviceDataCache, build_optimizer, make_train_step
 
     zero_counts()
@@ -2190,7 +2185,7 @@ def serving_export_phase(toy, dev, card):
     symbolic artifact against the live model; --verify; --shard-data."""
     from smilify_tpu_torch import serve
     from smilify_tpu_torch.cli import export_serving
-    from smilify_tpu_torch.cli.run_inference import load_model_from_checkpoint
+    from smilify_tpu_torch.serve import load_model_from_checkpoint
 
     work = ROOT / "build" / "smoke_serving_export"
     shutil.rmtree(work, ignore_errors=True)
@@ -2237,7 +2232,7 @@ def serving_export_phase(toy, dev, card):
     served = dict(np.load(work / "served.npz"))
     for label, ckpt in ckpts.items():
         model, cfg, rcfg, spec, _ = load_model_from_checkpoint(ckpt, device=dev)
-        predict = serve.build_predict_fn(model, rcfg, spec, cfg.mode == "multi_view")
+        predict = serve.build_predict_fn(model, rcfg, spec)
         gaps = {}
         for b in EXPORT_BATCHES[label]:
             inputs = tuple(torch.from_numpy(a).to(dev) for a in export_inputs(label, b))
@@ -2717,6 +2712,7 @@ def tools_video(toy, dev, card, work):
     video path of run_inference on phase 13's 5a checkpoint (the
     predictions come from TOOLS_MV_SAMPLES random 4-view samples from a
     seed; phase 16 runs the CLIs on HDF5 stores)."""
+    from smilify_tpu_torch import serve
     from smilify_tpu_torch.cli import generate_video, run_inference
     from smilify_tpu_torch.core.spec import load_model_spec
     from smilify_tpu_torch.tools.synthetic_data import write_replicant_sequence
@@ -2776,11 +2772,11 @@ def tools_video(toy, dev, card, work):
         f"predicted, rendered, drawn, written as PNGs and encoded in {secs:.2f} s = "
         f"{SERVE_FRAMES / secs:.2f} frames/s, model load included ({card})")
 
-    model5a, _, rcfg, spec5a, _ = run_inference.load_model_from_checkpoint(
+    model5a, _, rcfg, spec5a, _ = serve.load_model_from_checkpoint(
         str(ROOT / "build" / "smoke_serving_export" / "config5a" / "final_model"), dev)
     images, mask, cams = (torch.from_numpy(a).to(dev)
                           for a in export_inputs("config5a", TOOLS_MV_SAMPLES))
-    preds = run_inference.predictor(model5a, rcfg, spec5a, True)(
+    preds = serve.predictor(model5a, rcfg, spec5a, True)(
         {"images": images, "view_mask": mask, "camera_indices": cams})
     traj = {k: v.cpu().numpy() for k, v in preds.items()}
     t0 = time.perf_counter()

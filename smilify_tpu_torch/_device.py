@@ -18,6 +18,14 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+def set_float32_matmul(dev: torch.device) -> None:
+    """TF32 off on a card: float32 is float32, as in the JAX package. Entry
+    points call it, not library code: the benchmark's controls need TF32 on."""
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+
 def device_constant(values, dtype, device) -> torch.Tensor:
     """The 1-D tensor ``values`` on ``device``. While the current stream
     captures a CUDA graph, :func:`filled`: the capture refuses

@@ -20,7 +20,7 @@ import os
 import numpy as np
 import torch
 
-from smilify_tpu_torch._device import resolve_device
+from smilify_tpu_torch._device import resolve_device, set_float32_matmul
 
 
 def main(argv=None, source=None):
@@ -42,10 +42,11 @@ def main(argv=None, source=None):
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    from smilify_tpu_torch.cli.run_inference import load_model_from_checkpoint, predictor
     from smilify_tpu_torch.data.combined import open_dataset
+    from smilify_tpu_torch.models.predict import input_names
     from smilify_tpu_torch.models.multiview import project_through_view_cameras
     from smilify_tpu_torch.models.regressor import float32_region, forward_model, project_to_camera
+    from smilify_tpu_torch.serve import load_model_from_checkpoint, predictor
     from smilify_tpu_torch.train.benchmark import BenchmarkAccumulator
     from smilify_tpu_torch.train.trainer import (
         StagingCollator,
@@ -55,9 +56,7 @@ def main(argv=None, source=None):
     )
 
     dev = resolve_device(args.device)
-    if dev.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    set_float32_matmul(dev)
     model, cfg, rcfg, spec, meta = load_model_from_checkpoint(args.checkpoint, dev)
     out_dir = args.output_dir or os.path.join(os.path.dirname(args.checkpoint) or ".", "benchmark")
     res = cfg.model.input_resolution or 224
@@ -97,7 +96,7 @@ def main(argv=None, source=None):
 
     acc = BenchmarkAccumulator()
     staging = StagingCollator()
-    dev_keys = ("images", "view_mask", "camera_indices") if is_mv else ("image",)
+    dev_keys = input_names(is_mv)
     for i in range(0, n, args.batch_size):
         samples = [dataset[j] for j in range(i, min(n, i + args.batch_size))]
         batch = staging.to_device(staging([{k: s[k] for k in dev_keys} for s in samples]), dev)

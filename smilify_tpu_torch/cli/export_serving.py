@@ -51,26 +51,24 @@ def main(argv=None):
     if not args.verify:
         return meta
 
-    from smilify_tpu_torch.cli.run_inference import load_model_from_checkpoint
-    from smilify_tpu_torch.serve import build_predict_fn, load_serving_artifact
+    from smilify_tpu_torch.serve import (
+        build_predict_fn,
+        example_inputs,
+        load_model_from_checkpoint,
+        load_serving_artifact,
+    )
 
     # the card's program where it was exported, else the first one named
     served_model = load_serving_artifact(args.output,
                                          "cuda" if "cuda" in platforms else platforms[0])
     dev = served_model.devices[0]
-    model, cfg, rcfg, spec, _ = load_model_from_checkpoint(args.checkpoint, device=dev)
-    is_mv = cfg.mode == "multi_view"
-    res = cfg.model.input_resolution or 224
-    B = args.batch or 2
-    rng = np.random.RandomState(0)
-    if is_mv:
-        V = rcfg.max_views
-        inputs = (torch.from_numpy(rng.rand(B, V, res, res, 3).astype(np.float32)),
-                  torch.ones((B, V), dtype=torch.bool), torch.zeros((B, V), dtype=torch.int32))
-    else:
-        inputs = (torch.from_numpy(rng.rand(B, res, res, 3).astype(np.float32)),)
+    model, _, rcfg, spec, _ = load_model_from_checkpoint(args.checkpoint, device=dev)
+    # the artifact's own signature, random images
+    inputs = example_inputs(meta["input_resolution"], args.batch or 2, meta["n_views"], "cpu")
+    images = np.random.RandomState(0).rand(*inputs[0].shape).astype(np.float32)
+    inputs = (torch.from_numpy(images),) + inputs[1:]
     with torch.no_grad():
-        live = build_predict_fn(model, rcfg, spec, is_mv)(*(a.to(dev) for a in inputs))
+        live = build_predict_fn(model, rcfg, spec)(*(a.to(dev) for a in inputs))
     served = served_model(*inputs)
     worst = max(float(torch.max(torch.abs(served[k].float() - live[k].float()))) for k in live)
     print(f"verify: {len(live)} outputs, max |artifact - live| = {worst:.3e}")

@@ -28,7 +28,6 @@ import os
 from typing import List
 
 import numpy as np
-import torch
 
 
 def load_stages_from_yaml(path: str):
@@ -165,12 +164,11 @@ def main(argv=None):
                     help="where the fit runs: cuda (default; raises without a card) or cpu")
     args = ap.parse_args(argv)
 
+    from smilify_tpu_torch._device import set_float32_matmul
     from smilify_tpu_torch.cli.optimize_to_joints import setup_device
 
     dev = setup_device(args)
-    if dev.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    set_float32_matmul(dev)
 
     from smilify_tpu_torch.core.spec import load_model_spec
 

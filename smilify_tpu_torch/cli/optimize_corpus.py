@@ -36,6 +36,7 @@ import time
 import numpy as np
 import torch
 
+from smilify_tpu_torch._device import set_float32_matmul
 from smilify_tpu_torch.cli.optimize_to_joints import (
     frame_collage,
     frame_params,
@@ -102,9 +103,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     dev = setup_device(args)
-    if dev.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    set_float32_matmul(dev)
 
     from smilify_tpu_torch.core.spec import load_model_spec
     from smilify_tpu_torch.fitter.fitter import FitData

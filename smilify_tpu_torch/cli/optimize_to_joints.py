@@ -35,7 +35,7 @@ import time
 import numpy as np
 import torch
 
-from smilify_tpu_torch._device import resolve_device
+from smilify_tpu_torch._device import resolve_device, set_float32_matmul
 
 
 def resolve_approx_max_faces(args, image_size, auto_fn):
@@ -213,9 +213,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     dev = setup_device(args)
-    if dev.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    set_float32_matmul(dev)
 
     from smilify_tpu_torch.core.spec import load_model_spec
     from smilify_tpu_torch.fitter.fitter import (

@@ -32,105 +32,16 @@ from __future__ import annotations
 
 import argparse
 import copy
-import json
 import os
 
 import numpy as np
 import torch
 
-from smilify_tpu_torch._device import resolve_device
-from smilify_tpu_torch.utils import monitoring
+from smilify_tpu_torch._device import resolve_device, set_float32_matmul
+from smilify_tpu_torch.serve import discover_checkpoint, load_model_from_checkpoint, predictor
 
 RENDER_CHUNK = 8   # single-view frames rendered between two host fetches
 VIDEO_FPS = 15
-
-
-def discover_checkpoint(path: str) -> str:
-    """Resolve a run directory to its best checkpoint: ``best_model`` first,
-    then ``final_model``, then the newest ``epoch_N``, in the run root and
-    then its ``checkpoints/``. A path that is already a checkpoint (has a
-    ``.meta.json`` beside it) is returned unchanged."""
-    if os.path.exists(path + ".meta.json"):
-        return path
-    if not os.path.isdir(path):
-        return path
-    for root in (path, os.path.join(path, "checkpoints")):
-        if not os.path.isdir(root):
-            continue
-        for name in ("best_model", "final_model"):
-            cand = os.path.join(root, name)
-            if os.path.exists(cand + ".meta.json"):
-                print(f"auto-discovered checkpoint: {cand}")
-                return cand
-        epochs = sorted(
-            (int(n.split("_")[1].split(".")[0]), n.split(".")[0]) for n in os.listdir(root)
-            if n.startswith("epoch_") and n.endswith(".meta.json")
-            and n.split("_")[1].split(".")[0].isdigit())
-        if epochs:
-            cand = os.path.join(root, epochs[-1][1])
-            print(f"auto-discovered checkpoint: {cand}")
-            return cand
-    return path
-
-
-def load_model_from_checkpoint(ckpt_path: str, device="cuda"):
-    """(model in eval mode on ``device``, TrainingConfig, regressor config,
-    ModelSpec on ``device``, meta) from a checkpoint or a run directory
-    (resolved by :func:`discover_checkpoint`)."""
-    from smilify_tpu_torch.models.weight_port import build_model
-    from smilify_tpu_torch.train.config import config_from_dict, resolve_model_spec
-    from smilify_tpu_torch.train.trainer import load_checkpoint
-
-    dev = resolve_device(device)
-    ckpt_path = discover_checkpoint(ckpt_path)
-    with open(ckpt_path + ".meta.json") as f:
-        meta = json.load(f)
-    cfg = config_from_dict(meta["config"])
-    spec = resolve_model_spec(cfg, device=dev)
-    rcfg = cfg.regressor_config(spec)
-    model = build_model(rcfg, img_size=cfg.model.input_resolution or 224)
-    payload, _ = load_checkpoint(ckpt_path)
-    model.load_state_dict(payload["model"])
-    model = model.to(dev).eval()
-    if dev.type == "cuda":
-        model = model.to(memory_format=torch.channels_last)
-    return model, cfg, rcfg, spec, meta
-
-
-def predictor(model, rcfg, spec, multiview: bool):
-    """``predict(batch)`` → decoded predictions for a batch of device
-    tensors (``image``, or ``images``/``view_mask``/``camera_indices``).
-
-    On a card a call replays a CUDA graph of the model and the decode once
-    its inputs' ``graph_key`` has been seen (``utils/graphs.py``'s
-    :class:`~smilify_tpu_torch.utils.graphs.Replayer`): the key's first call
-    runs eagerly (cuDNN's choices, lazy set-up, the allocator), its second
-    captures the graph and replays it, later ones copy their inputs into
-    the graph's and replay. The same kernels run on the same numbers either
-    way, and every call returns tensors of its own. On the CPU every call
-    runs eagerly. Counted while recording: ``infer.graph.eager``,
-    ``infer.graph.captures``, ``infer.graph.replays``."""
-    from smilify_tpu_torch.models.multiview import decode_multiview_predictions
-    from smilify_tpu_torch.models.regressor import decode_predictions, float32_region
-    from smilify_tpu_torch.utils.graphs import Replayer
-
-    names = ("images", "view_mask", "camera_indices") if multiview else ("image",)
-
-    def forward(inputs):
-        raw, _ = model(*(inputs[k] for k in names))
-        with monitoring.span("model.decode"), float32_region(spec.device):
-            if multiview:
-                return decode_multiview_predictions(rcfg, raw, spec)
-            return decode_predictions(rcfg, raw, spec)
-
-    replay = Replayer(forward, "infer.graph")
-
-    @torch.no_grad()
-    def predict(batch):
-        with monitoring.span("infer.predict"):
-            return replay({k: batch[k] for k in names})
-
-    return predict
 
 
 def _interleave(parts):
@@ -249,13 +160,12 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     from smilify_tpu_torch.data.video import VideoFrameDataset
+    from smilify_tpu_torch.models.predict import input_names
     from smilify_tpu_torch.train.trainer import StagingCollator
     from smilify_tpu_torch.utils.animation_export import AnimationRecorder, PredictionSmoother
 
     dev = resolve_device(args.device)
-    if dev.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    set_float32_matmul(dev)
     model, cfg, rcfg, spec, meta = load_model_from_checkpoint(args.checkpoint, dev)
     res = cfg.model.input_resolution or 224
 
@@ -287,7 +197,7 @@ def main(argv=None):
             devices.append(d)
         print(f"sharding inference batches over {len(devices)} card(s)")
     staging = StagingCollator()
-    keys = ("images", "view_mask", "camera_indices") if is_mv else ("image",)
+    keys = input_names(is_mv)
     all_preds = []
     for i in range(0, n, args.batch_size):
         samples = [dataset[j] for j in range(i, min(n, i + args.batch_size))]

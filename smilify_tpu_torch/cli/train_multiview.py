@@ -17,15 +17,15 @@ from __future__ import annotations
 
 import os
 
+from smilify_tpu_torch._device import set_float32_matmul
 from smilify_tpu_torch.cli.train_regressor import (
     base_parser,
     init_model,
-    joint_importance_on,
     load_run_config,
     prepare_splits,
-    set_float32_matmul,
     setup_data_parallel,
 )
+from smilify_tpu_torch.train.config import joint_importance_on
 
 
 def main(argv=None, source=None):

@@ -24,7 +24,7 @@ import time
 import numpy as np
 import torch
 
-from smilify_tpu_torch._device import resolve_device
+from smilify_tpu_torch._device import resolve_device, set_float32_matmul
 
 
 def main(argv=None):
@@ -41,9 +41,7 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
-    if dev.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    set_float32_matmul(dev)
 
     from smilify_tpu_torch.core.spec import load_model_spec
     from smilify_tpu_torch.models.pointnet import (

@@ -29,8 +29,12 @@ import json
 import os
 import time
 
-import numpy as np
 import torch
+
+from smilify_tpu_torch._device import set_float32_matmul
+from smilify_tpu_torch.train.config import joint_importance_on
+from smilify_tpu_torch.train.singleview_setup import make_singleview_apply_fn, make_target_fn
+
 
 def parse_set_overrides(pairs):
     """``["a.b=1", "c.d=x"]`` → ``{"a.b": 1, "c.d": "x"}`` (values parsed as
@@ -81,52 +85,6 @@ def build_dataset(cfg, spec, source=None):
             seed=cfg.training.seed,
         ), kind
     return SingleViewHDF5Dataset(path), kind
-
-
-def make_target_fn(spec, ignored_idx):
-    """``target_dict(batch)``: the supervision targets of a batch, as the
-    JAX trainer assembles them (the model's leading betas, cam_rot as 3×3,
-    fov as a scalar a sample, visibility with the ignored joints zeroed)."""
-
-    def target_dict(batch):
-        targets = {name: batch[name] for name in (
-            "global_rot", "joint_rot", "betas", "trans", "fov", "cam_rot", "cam_trans",
-            "keypoints_3d", "silhouette") if name in batch}
-        # a dataset made with a wider PCA space than the model's: the shared
-        # leading components only
-        if "betas" in targets and targets["betas"].shape[-1] != spec.n_betas:
-            targets["betas"] = targets["betas"][..., : spec.n_betas]
-        if "cam_rot" in targets and targets["cam_rot"].shape[-1] == 9:
-            targets["cam_rot"] = targets["cam_rot"].reshape(targets["cam_rot"].shape[:-1] + (3, 3))
-        if "fov" in targets and targets["fov"].ndim > 1:
-            targets["fov"] = targets["fov"][..., 0]
-        if "keypoints_2d" in batch:
-            targets["keypoints_2d"] = batch["keypoints_2d"]
-            vis = batch.get("keypoint_visibility")
-            if vis is not None and ignored_idx:
-                keep = torch.ones(vis.shape[-1], dtype=vis.dtype, device=vis.device)
-                keep[list(ignored_idx)] = 0.0
-                vis = vis * keep
-            targets["kp_visibility"] = vis
-        return targets
-
-    return target_dict
-
-
-def make_singleview_apply_fn(rcfg, spec):
-    """``apply_fn(model, batch, train) -> preds``: the decoded predictions
-    and the IEF history of ``batch["image"]``."""
-    from smilify_tpu_torch.models.regressor import decode_predictions, float32_region
-    from smilify_tpu_torch.utils import monitoring
-
-    def apply_fn(model, batch, train):
-        raw, history = model(batch["image"])
-        with monitoring.span("model.decode"), float32_region(batch["image"].device):
-            preds = decode_predictions(rcfg, raw, spec)
-        preds["ief_history"] = history
-        return preds
-
-    return apply_fn
 
 
 def prepare_splits(cfg, dataset, kind, multiview: bool):
@@ -231,25 +189,6 @@ def init_model(cfg, rcfg, res: int, dev: torch.device, allow_random_backbone: bo
         model = model.to(memory_format=torch.channels_last)
     print(f"model initialized ({time.time() - t0:.0f}s)")
     return model
-
-
-def joint_importance_on(cfg, spec, dev: torch.device):
-    """The config's (K,) per-joint loss weights on ``dev``, or None."""
-    from smilify_tpu_torch.train.config import resolve_joint_importance
-
-    w = resolve_joint_importance(cfg, spec)
-    if w is None:
-        return None
-    w = torch.as_tensor(np.asarray(w), dtype=torch.float32, device=dev)
-    print(f"joint importance active: min={float(w.min())} max={float(w.max())}")
-    return w
-
-
-def set_float32_matmul(dev: torch.device) -> None:
-    """TF32 off on a card: float32 is float32, as in the JAX package."""
-    if dev.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
 
 
 def main(argv=None, source=None):

@@ -1,18 +1,18 @@
-"""Serving export: freeze the inference step into one self-contained
-artifact (port of ``smilify_tpu/serve.py``).
-
-:func:`export_serving_artifact` loads a training checkpoint, wraps the model
-and its decode (:func:`build_predict_fn`, the same computation as
-``cli/run_inference.py::predictor``) and captures it with
+"""The serving layer (port of ``smilify_tpu/serve.py`` and the loader of
+``smilify_tpu/cli/run_inference.py``): :func:`load_model_from_checkpoint`
+and :func:`predictor` serve the regressors' step
+(``models/predict.py::decoded``) live, for the inference CLIs;
+:func:`export_serving_artifact` loads a training checkpoint, wraps the same
+step (:func:`build_predict_fn`) and captures it with
 ``torch.export.export``: the graph, with the weights inside the exported
 program, for each requested device. The one file is a zip container that
 holds one ``torch.export.save`` program a device (``cuda``, ``cpu``)
 beside its metadata; a ``.json`` sidecar repeats the metadata.
 :class:`ServingModel` / :func:`load_serving_artifact` run it with ``torch``
 and this module alone: no model classes, no config system and no checkpoint
-reader are imported (this module imports them only to export). The
-artifact also freezes the numerics: it replays the captured computation
-even if the model code changes later.
+reader are imported (this module imports them only to export and to serve
+live). The artifact also freezes the numerics: it replays the captured
+computation even if the model code changes later.
 
 One program a device, not one moved between devices: the backbone's
 autocast region records its device type in the graph. The batch is fixed
@@ -48,40 +48,107 @@ EXAMPLE_BATCH = 2     # the batch a symbolic program is captured at (not 0 or 1)
 MAX_BATCH = 1 << 16
 
 
-class _Predict(torch.nn.Module):
-    """images (B, H, W, 3) → the decoded predictions less ``ief_history``."""
+def discover_checkpoint(path: str) -> str:
+    """Resolve a run directory to its best checkpoint: ``best_model`` first,
+    then ``final_model``, then the newest ``epoch_N``, in the run root and
+    then its ``checkpoints/``. A path that is already a checkpoint (has a
+    ``.meta.json`` beside it) is returned unchanged."""
+    if os.path.exists(path + ".meta.json"):
+        return path
+    if not os.path.isdir(path):
+        return path
+    for root in (path, os.path.join(path, "checkpoints")):
+        if not os.path.isdir(root):
+            continue
+        for name in ("best_model", "final_model"):
+            cand = os.path.join(root, name)
+            if os.path.exists(cand + ".meta.json"):
+                print(f"auto-discovered checkpoint: {cand}")
+                return cand
+        epochs = sorted(
+            (int(n.split("_")[1].split(".")[0]), n.split(".")[0]) for n in os.listdir(root)
+            if n.startswith("epoch_") and n.endswith(".meta.json")
+            and n.split("_")[1].split(".")[0].isdigit())
+        if epochs:
+            cand = os.path.join(root, epochs[-1][1])
+            print(f"auto-discovered checkpoint: {cand}")
+            return cand
+    return path
+
+
+def load_model_from_checkpoint(ckpt_path: str, device="cuda"):
+    """(model in eval mode on ``device``, TrainingConfig, regressor config,
+    ModelSpec on ``device``, meta) from a checkpoint or a run directory
+    (resolved by :func:`discover_checkpoint`)."""
+    from smilify_tpu_torch._device import resolve_device
+    from smilify_tpu_torch.models.weight_port import build_model
+    from smilify_tpu_torch.train.config import config_from_dict, resolve_model_spec
+    from smilify_tpu_torch.train.trainer import load_checkpoint
+
+    dev = resolve_device(device)
+    ckpt_path = discover_checkpoint(ckpt_path)
+    with open(ckpt_path + ".meta.json") as f:
+        meta = json.load(f)
+    cfg = config_from_dict(meta["config"])
+    spec = resolve_model_spec(cfg, device=dev)
+    rcfg = cfg.regressor_config(spec)
+    model = build_model(rcfg, img_size=cfg.model.input_resolution or 224)
+    payload, _ = load_checkpoint(ckpt_path)
+    model.load_state_dict(payload["model"])
+    model = model.to(dev).eval()
+    if dev.type == "cuda":
+        model = model.to(memory_format=torch.channels_last)
+    return model, cfg, rcfg, spec, meta
+
+
+def predictor(model, rcfg, spec, multiview: bool):
+    """``predict(batch)`` → decoded predictions for a batch of device
+    tensors (``image``, or ``images``/``view_mask``/``camera_indices``).
+
+    On a card a call replays a CUDA graph of the model and the decode once
+    its inputs' ``graph_key`` has been seen (``utils/graphs.py``'s
+    :class:`~smilify_tpu_torch.utils.graphs.Replayer`): the key's first call
+    runs eagerly (cuDNN's choices, lazy set-up, the allocator), its second
+    captures the graph and replays it, later ones copy their inputs into
+    the graph's and replay. The same kernels run on the same numbers either
+    way, and every call returns tensors of its own. On the CPU every call
+    runs eagerly. Counted while recording: ``infer.graph.eager``,
+    ``infer.graph.captures``, ``infer.graph.replays``."""
+    from smilify_tpu_torch.models.predict import decoded, input_names
+    from smilify_tpu_torch.utils import monitoring
+    from smilify_tpu_torch.utils.graphs import Replayer
+
+    names = input_names(multiview)
+    replay = Replayer(lambda inputs: decoded(model, rcfg, spec, inputs)[0], "infer.graph")
+
+    @torch.no_grad()
+    def predict(batch):
+        with monitoring.span("infer.predict"):
+            return replay({k: batch[k] for k in names})
+
+    return predict
+
+
+class Predict(torch.nn.Module):
+    """The model's inputs in ``models/predict.py::input_names``' order →
+    the decoded predictions less ``ief_history``."""
 
     def __init__(self, model, rcfg, spec):
         super().__init__()
         self.model, self.rcfg, self.spec = model, rcfg, spec
 
-    def forward(self, images):
-        from smilify_tpu_torch.models.regressor import decode_predictions, float32_region
+    def forward(self, *inputs):
+        from smilify_tpu_torch.models.predict import decoded, input_names, is_multiview
 
-        raw, _ = self.model(images)
-        with float32_region(images.device):
-            return decode_predictions(self.rcfg, raw, self.spec)
-
-
-class _PredictMultiView(_Predict):
-    """images (B, V, H, W, 3), view_mask (B, V) bool, camera ids (B, V) →
-    the decoded multi-view predictions less ``ief_history``."""
-
-    def forward(self, images, view_mask, camera_ids):
-        from smilify_tpu_torch.models.multiview import decode_multiview_predictions
-        from smilify_tpu_torch.models.regressor import float32_region
-
-        raw, _ = self.model(images, view_mask, camera_ids)
-        with float32_region(images.device):
-            return decode_multiview_predictions(self.rcfg, raw, self.spec)
+        names = input_names(is_multiview(self.model))
+        return decoded(self.model, self.rcfg, self.spec, dict(zip(names, inputs)))[0]
 
 
-def build_predict_fn(model, rcfg, spec, is_mv: bool) -> torch.nn.Module:
-    """The checkpoint's inference step as a module of the image batch (and,
-    multi-view, the view mask and camera ids): the computation of
-    ``cli/run_inference.py::predictor`` with ``ief_history`` dropped (the
-    decode leaves it out)."""
-    return (_PredictMultiView if is_mv else _Predict)(model, rcfg, spec).eval()
+def build_predict_fn(model, rcfg, spec) -> torch.nn.Module:
+    """The checkpoint's inference step as a module of the model's inputs:
+    ``models/predict.py::decoded``, as :func:`predictor` runs it, with
+    ``ief_history`` dropped (the decode leaves it out)."""
+    return Predict(model, rcfg, spec).eval()
 
 
 def example_inputs(res: int, batch: int, n_views: Optional[int], device) -> tuple:
@@ -95,13 +162,14 @@ def example_inputs(res: int, batch: int, n_views: Optional[int], device) -> tupl
             torch.arange(n_views, dtype=torch.int32, device=dev).repeat(batch, 1))
 
 
-def export_program(predict: torch.nn.Module, inputs: tuple, symbolic: bool):
+def export_program(predict: Predict, inputs: tuple, symbolic: bool):
     """``torch.export`` of ``predict`` on ``inputs``; a symbolic batch
-    through ``torch.export.Dim`` when ``symbolic``."""
+    through ``torch.export.Dim`` when ``symbolic`` (one entry for
+    ``forward``'s one parameter, ``*inputs``)."""
     dynamic = None
     if symbolic:
         batch = torch.export.Dim("batch", min=1, max=MAX_BATCH)
-        dynamic = tuple({0: batch} for _ in inputs)
+        dynamic = (tuple({0: batch} for _ in inputs),)
     with torch.no_grad():
         return torch.export.export(predict, inputs, dynamic_shapes=dynamic)
 
@@ -121,7 +189,6 @@ def export_serving_artifact(
     card) replicas, a fixed batch divisible by their count, each replica's
     program serving its share."""
     from smilify_tpu_torch._device import resolve_device
-    from smilify_tpu_torch.cli.run_inference import load_model_from_checkpoint
 
     n_dev = 1
     if shard_data:
@@ -137,7 +204,7 @@ def export_serving_artifact(
         is_mv = cfg.mode == "multi_view"
         res = cfg.model.input_resolution or 224
         n_views = rcfg.max_views if is_mv else None
-        predict = build_predict_fn(model, rcfg, spec, is_mv)
+        predict = build_predict_fn(model, rcfg, spec)
         inputs = example_inputs(res, per_device or EXAMPLE_BATCH, n_views, dev)
         ep = export_program(predict, inputs, symbolic=batch_size == 0)
         buf = io.BytesIO()

@@ -59,7 +59,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from smilify_tpu_torch._device import card_line, resolve_device
+from smilify_tpu_torch._device import card_line, resolve_device, set_float32_matmul
 from smilify_tpu_torch.bench import fit_step, load_spec, time_modes
 from smilify_tpu_torch.core.lbs import smil_forward
 from smilify_tpu_torch.fitter.fitter import FitParams, synthetic_fit_data
@@ -313,15 +313,13 @@ def multiview_model(spec, n_views, res=224, compute_dtype=torch.bfloat16):
 
 def bench_singleview_inference(spec, batches=(8, 128), res=224, repeats=3, target_s=1.0):
     """config 4: images/s of the model and the decode at each batch."""
-    from smilify_tpu_torch.models.regressor import decode_predictions, float32_region
+    from smilify_tpu_torch.models.predict import decoded
 
     cfg, model = singleview_model(spec, res)
 
     @torch.no_grad()
     def chain(imgs):
-        raw, _ = model(imgs)
-        with float32_region(imgs.device):
-            preds = decode_predictions(cfg, raw, spec)
+        preds, _ = decoded(model, cfg, spec, {"image": imgs})
         # fold the predictions into the next batch: every step depends on the last
         return imgs * (1.0 - 1e-5) + torch.mean(preds["trans"]) * 1e-7
 
@@ -341,19 +339,19 @@ def multiview_chain(spec, cfg, model, res):
     projection through each view and the DLT re-triangulation of the
     projected keypoints, folded back into the next step's images."""
     from smilify_tpu_torch.models.multiview import (
-        decode_multiview_predictions,
         project_through_view_cameras,
         view_projection_matrices,
     )
+    from smilify_tpu_torch.models.predict import decoded
     from smilify_tpu_torch.models.regressor import float32_region, forward_model
     from smilify_tpu_torch.render.cameras import triangulate_dlt
 
     @torch.no_grad()
     def chain(carry):
         imgs, vm, cids = carry
-        raw, _ = model(imgs, vm, cids)
+        preds, _ = decoded(model, cfg, spec,
+                           {"images": imgs, "view_mask": vm, "camera_indices": cids})
         with float32_region(imgs.device):
-            preds = decode_multiview_predictions(cfg, raw, spec)
             _, joints3d = forward_model(spec, preds)
             kp2d = project_through_view_cameras(preds, joints3d, (res, res))
             P = view_projection_matrices(preds)
@@ -398,8 +396,8 @@ def singleview_train_setup(spec, backbone="resnet50", res=224, compute_dtype=tor
     ``batch(B, rng)``): Adam 1e-4, param MSEs + visibility-weighted 2D
     keypoints. With a ``('data',)`` ``mesh`` the step is the data-parallel
     one (``train/trainer.py::make_train_step``): give it this rank's rows."""
-    from smilify_tpu_torch.cli.train_regressor import make_singleview_apply_fn
     from smilify_tpu_torch.models.regressor import RegressorConfig, SMILRegressor, compute_batch_loss
+    from smilify_tpu_torch.train.singleview_setup import make_singleview_apply_fn
     from smilify_tpu_torch.train.trainer import PlainAdam, make_train_step
 
     torch.manual_seed(0)
@@ -439,8 +437,8 @@ def multiview_train_setup(spec, n_views=4, res=224, compute_dtype=torch.bfloat16
         MultiViewConfig,
         MultiViewSMILRegressor,
         compute_multiview_batch_loss,
-        decode_multiview_predictions,
     )
+    from smilify_tpu_torch.train.multiview_setup import make_multiview_apply_fn
     from smilify_tpu_torch.train.trainer import PlainAdam, make_train_step
 
     torch.manual_seed(0)
@@ -451,17 +449,12 @@ def multiview_train_setup(spec, n_views=4, res=224, compute_dtype=torch.bfloat16
     if spec.device.type == "cuda":
         model = model.to(memory_format=torch.channels_last)
 
-    def apply_fn(m, batch, train):
-        raw, history = m(batch["images"], batch["view_mask"], batch["camera_ids"])
-        preds = decode_multiview_predictions(cfg, raw, spec)
-        preds["ief_history"] = history
-        return preds
-
     def loss_fn(preds, batch):
         return compute_multiview_batch_loss(spec, cfg, preds, batch["targets"], batch["view_mask"],
                                             MULTIVIEW_DEFAULT_LOSS_WEIGHTS, image_size=(res, res))
 
-    step = make_train_step(model, apply_fn, loss_fn, PlainAdam(model, TRAIN_LR))
+    step = make_train_step(model, make_multiview_apply_fn(cfg, spec, (res, res)), loss_fn,
+                           PlainAdam(model, TRAIN_LR))
     dev, K = spec.device, spec.n_joints
     eye = torch.eye(3, device=dev)
 
@@ -480,7 +473,7 @@ def multiview_train_setup(spec, n_views=4, res=224, compute_dtype=torch.bfloat16
                        B, n_views, 3).clone()}
         return {"images": f32(rng.rand(B, n_views, res, res, 3)),
                 "view_mask": torch.ones((B, n_views), dtype=torch.bool, device=dev),
-                "camera_ids": torch.arange(n_views, device=dev).expand(B, n_views),
+                "camera_indices": torch.arange(n_views, device=dev).expand(B, n_views),
                 "targets": targets}
 
     return cfg, model, step, batch
@@ -530,7 +523,7 @@ def bench_multiview_train_step(spec, n_views=4, batches=(2, 8), res=224, repeats
            "losses": "param MSEs + per-view kp2d + kp3d + cameras + DLT consistency"}
     out.update(_bench_train(multiview_train_setup(spec, n_views, res),
                             {"frames_per_sec": "sample", "view_images_per_sec": "view"},
-                            lambda b: (b["images"], b["view_mask"], b["camera_ids"]), batches,
+                            lambda b: (b["images"], b["view_mask"], b["camera_indices"]), batches,
                             repeats, target_s, n_views))
     return out
 
@@ -632,9 +625,7 @@ def main(argv=None):
     if args.target_obj is None and any(s in CONFIGS[1] for s in args.only or ()):
         ap.error("config2 needs its target scan: pass --target-obj")
     dev = resolve_device(args.device)
-    if dev.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    set_float32_matmul(dev)
     spec, name = load_spec(args.model, dev)
     report = {"device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else str(dev),
               "card": card_line() if dev.type == "cuda" else None,

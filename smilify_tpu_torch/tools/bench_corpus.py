@@ -21,7 +21,7 @@ import time
 import numpy as np
 import torch
 
-from smilify_tpu_torch._device import card_line, resolve_device
+from smilify_tpu_torch._device import card_line, resolve_device, set_float32_matmul
 from smilify_tpu_torch.bench import load_spec
 from smilify_tpu_torch.fitter.fitter import FitData, SmalFitter
 from smilify_tpu_torch.fitter.fitter_batch import BatchedFitter
@@ -88,9 +88,7 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
-    if dev.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    set_float32_matmul(dev)
     spec, name = load_spec(args.model, dev)
     print(json.dumps(run(spec, name, args.clips, args.size, args.chunk)), flush=True)
 

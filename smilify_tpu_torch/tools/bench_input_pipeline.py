@@ -64,12 +64,12 @@ def run_mode(args) -> dict:
     """ms a step of ``args.mode`` (this process runs that mode alone), and
     the seconds its set-up (model, data, first steps) took."""
     t_setup = time.perf_counter()
-    from smilify_tpu_torch.cli.train_regressor import make_singleview_apply_fn
     from smilify_tpu_torch.core.spec import load_model_spec
     from smilify_tpu_torch.data.cache import DecodedSampleCache
     from smilify_tpu_torch.data.replicant import ReplicantDataset
     from smilify_tpu_torch.models.regressor import RegressorConfig, SMILRegressor, compute_batch_loss
     from smilify_tpu_torch.tools._timing import sync
+    from smilify_tpu_torch.train.singleview_setup import make_singleview_apply_fn
     from smilify_tpu_torch.train.trainer import (
         PlainAdam,
         StagingCollator,

@@ -22,7 +22,7 @@ from pathlib import Path
 
 import torch
 
-from smilify_tpu_torch._device import card_line, resolve_device
+from smilify_tpu_torch._device import card_line, resolve_device, set_float32_matmul
 from smilify_tpu_torch.bench import load_spec
 from smilify_tpu_torch.fitter.fitter import SmalFitter, render_frame, synthetic_fit_data
 from smilify_tpu_torch.fitter.progressive import ProgressiveFitter
@@ -71,9 +71,7 @@ def main(argv=None):
     ap.add_argument("--out", type=Path, default=OUT)
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
-    if dev.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    set_float32_matmul(dev)
     spec, name = load_spec(args.model, dev)
     data = synthetic_fit_data(spec, 1, (args.size, args.size))
     scales = tuple(int(s) for s in args.scales.split(","))

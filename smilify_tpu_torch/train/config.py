@@ -488,6 +488,20 @@ def resolve_joint_importance(cfg: TrainingConfig, spec):
     return weights if active else None
 
 
+def joint_importance_on(cfg: TrainingConfig, spec, dev):
+    """The config's (K,) per-joint loss weights (:func:`resolve_joint_importance`)
+    as a float32 tensor on ``dev``, or None."""
+    import numpy as np
+    import torch
+
+    w = resolve_joint_importance(cfg, spec)
+    if w is None:
+        return None
+    w = torch.as_tensor(np.asarray(w), dtype=torch.float32, device=dev)
+    print(f"joint importance active: min={float(w.min())} max={float(w.max())}")
+    return w
+
+
 def resolve_ignored_joint_indices(cfg: TrainingConfig, joint_names) -> List[int]:
     """Indices of ``ignored_joints`` (rotation/visibility ignore) — consumed at
     preprocessing time by zeroing keypoint visibility (reference

@@ -261,7 +261,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     import torch.distributed as dist
 
-    from smilify_tpu_torch.cli.train_regressor import set_float32_matmul
+    from smilify_tpu_torch._device import set_float32_matmul
     from smilify_tpu_torch.train.multihost import maybe_initialize_multihost, rank_device
 
     maybe_initialize_multihost(True, device=args.device, backend=args.backend)

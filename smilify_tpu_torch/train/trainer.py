@@ -492,7 +492,7 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, cfg, name: str = "checkpoi
     ``<ckpt_dir>/<name>.meta.json`` (epoch, step, the full config, the last
     50 history entries), as the JAX package writes its meta file. Returns
     the checkpoint's path, ``<ckpt_dir>/<name>``, which
-    ``cli.run_inference.discover_checkpoint`` and :func:`load_checkpoint` take."""
+    ``serve.discover_checkpoint`` and :func:`load_checkpoint` take."""
     os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.abspath(os.path.join(ckpt_dir, name))
     model_state = {k: v.detach().cpu() for k, v in state.model_state.items()}

@@ -154,6 +154,44 @@ def test_scan_sees_a_forbidden_import(tmp_path):
     assert {"smilify_tpu", "jax"} <= set(_imported_roots(p))
 
 
+def _cli_imports(path):
+    """The modules of ``smilify_tpu_torch.cli`` that ``path`` imports, in
+    function bodies too (``from smilify_tpu_torch import cli`` included)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names = [node.module] + [f"{node.module}.{alias.name}" for alias in node.names]
+        else:
+            continue
+        yield from (n for n in names
+                    if n == "smilify_tpu_torch.cli" or n.startswith("smilify_tpu_torch.cli."))
+
+
+def test_library_modules_import_no_cli():
+    """The layers point one way: no module of the port outside ``cli/``
+    imports a CLI module, inside functions either. Only the learning tool,
+    which drives the trainer and benchmark CLIs end to end, may."""
+    pkg = REPO / "smilify_tpu_torch"
+    files = [f for f in sorted(pkg.rglob("*.py"))
+             if f.relative_to(pkg).parts[0] != "cli" and f != pkg / "tools" / "prove_learning.py"]
+    assert pkg / "serve.py" in files and pkg / "train" / "multidevice.py" in files
+    bad = [(f.relative_to(REPO).as_posix(), m) for f in files for m in _cli_imports(f)]
+    assert bad == []
+
+
+def test_cli_scan_sees_an_upward_import(tmp_path):
+    p = tmp_path / "m.py"
+    p.write_text("import os\nfrom smilify_tpu_torch.serve import predictor\n"
+                 "from smilify_tpu_torch import cli, serve\n"
+                 "def f():\n    from smilify_tpu_torch.cli.train_regressor import main\n"
+                 "def g():\n    import smilify_tpu_torch.cli.run_inference as ri\n")
+    assert set(_cli_imports(p)) == {"smilify_tpu_torch.cli", "smilify_tpu_torch.cli.train_regressor",
+                                    "smilify_tpu_torch.cli.train_regressor.main",
+                                    "smilify_tpu_torch.cli.run_inference"}
+
+
 def test_port_imports_no_h5py():
     """No file of the port, and not chip_smoke.py, imports h5py, matplotlib,
     mpl_toolkits or yaml, inside functions either."""
@@ -249,6 +287,7 @@ def test_serving_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     """The regressors' serving path: the CLIs, the checkpoint loader and
     bench_all's configs 4, 5a and 5b default to the card and raise without
     one; asked for the CPU, the loader runs there."""
+    from smilify_tpu_torch import serve
     from smilify_tpu_torch.cli import benchmark_model, run_inference
     from smilify_tpu_torch.core.spec import toy_model_spec
     from smilify_tpu_torch.models.weight_port import build_model
@@ -266,13 +305,13 @@ def test_serving_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     calls = [
         lambda: run_inference.main(["--checkpoint", ckpt, "--data-path", str(tmp_path)]),
         lambda: benchmark_model.main(["--checkpoint", ckpt, "--dataset-path", str(tmp_path)]),
-        lambda: run_inference.load_model_from_checkpoint(ckpt),
+        lambda: serve.load_model_from_checkpoint(ckpt),
         lambda: bench_all.main(["--only", "config4", "config5"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
-    loaded = run_inference.load_model_from_checkpoint(ckpt, device="cpu")[0]
+    loaded = serve.load_model_from_checkpoint(ckpt, device="cpu")[0]
     assert next(loaded.parameters()).device.type == "cpu"
 
 

@@ -34,6 +34,7 @@ from smilify_tpu.train import config as jconfig
 from smilify_tpu.train import trainer as jtrainer
 from smilify_tpu.utils import animation_export as janim
 
+from smilify_tpu_torch import serve
 from smilify_tpu_torch.cli import benchmark_model as t_benchmark_model
 from smilify_tpu_torch.cli import run_inference as t_run_inference
 from smilify_tpu_torch.core.spec import toy_model_spec
@@ -89,12 +90,12 @@ def test_checkpoint_round_trip_and_meta(tmp_path):
     assert meta["epoch"] == 4 and meta["step"] == 40 and len(meta["history"]) == 50
     assert meta["config"] == json.loads(json.dumps(cfg.to_dict(), default=str))
     assert tconfig.config_from_dict(meta["config"]).model == cfg.model
-    assert t_run_inference.discover_checkpoint(str(tmp_path)) == path
+    assert serve.discover_checkpoint(str(tmp_path)) == path
 
 
 def test_checkpoint_discovery_order(tmp_path):
     """As tests/test_checkpoint_conventions.py::test_checkpoint_discovery_order."""
-    discover = t_run_inference.discover_checkpoint
+    discover = serve.discover_checkpoint
     run = tmp_path / "run"
     run.mkdir()
 

@@ -231,17 +231,14 @@ def test_heldout_train_step_matches_jax(tmp_path):
     from smilify_tpu.train import trainer as jtrainer
     from smilify_tpu.train.multidevice import toy_model_spec as j_toy_spec
 
-    from smilify_tpu_torch.cli.train_regressor import (
-        make_singleview_apply_fn,
-        make_target_fn,
-        parse_set_overrides,
-    )
+    from smilify_tpu_torch.cli.train_regressor import parse_set_overrides
     from smilify_tpu_torch.core.spec import toy_model_spec as t_toy_spec
     from smilify_tpu_torch.data.hdf5_dataset import MultiViewHDF5Dataset, collate_multiview
     from smilify_tpu_torch.models import regressor as treg
     from smilify_tpu_torch.models.weight_port import state_dict_from_flax
     from smilify_tpu_torch.train import config as tconfig
     from smilify_tpu_torch.train import trainer as ttrainer
+    from smilify_tpu_torch.train.singleview_setup import make_singleview_apply_fn, make_target_fn
     from tests.test_torch_models import random_variables
     from tests.test_torch_train import GRAD_RTOL, LOSS_RTOL, MARGIN, MIN_KEPT, STATS_RTOL, UPDATE_RTOL
 

@@ -176,7 +176,7 @@ def test_fitted_parameters_are_bitwise_equal_with_recording_on_and_off(fit_input
 
 
 def test_train_step_records_its_spans():
-    from smilify_tpu_torch.cli.train_regressor import make_singleview_apply_fn
+    from smilify_tpu_torch.train.singleview_setup import make_singleview_apply_fn
     from smilify_tpu_torch.models.regressor import (
         RegressorConfig,
         SMILRegressor,

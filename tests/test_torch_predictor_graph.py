@@ -1,4 +1,4 @@
-"""``cli/run_inference.py::predictor``'s CUDA-graph replay.
+"""``serve.py::predictor``'s CUDA-graph replay.
 
 On the CPU every call runs eagerly: the outputs are the model's and the
 decode's as called directly, the calls count ``infer.graph.eager`` and
@@ -28,8 +28,8 @@ import tests._torch_threads  # noqa: F401  (first: torch's thread share of a wor
 import pytest
 import torch
 
+from smilify_tpu_torch import serve
 from smilify_tpu_torch._device import device_constant, filled
-from smilify_tpu_torch.cli import run_inference
 from smilify_tpu_torch.core.spec import toy_model_spec
 from smilify_tpu_torch.models.multiview import decode_multiview_predictions
 from smilify_tpu_torch.models.regressor import decode_predictions, float32_region
@@ -116,7 +116,7 @@ def _counters():
 def test_cpu_predictor_is_eager_and_unchanged(tmp_path, mode):
     cpu = torch.device("cpu")
     model, rcfg, spec = _toy(tmp_path, mode, cpu)
-    predict = run_inference.predictor(model, rcfg, spec, mode == "multi_view")
+    predict = serve.predictor(model, rcfg, spec, mode == "multi_view")
     batches = [_batch(mode, 4, 32, cpu, s) for s in (1, 1, 2, 3)] + [_batch(mode, 3, 32, cpu, 4)]
     monitoring.reset()
     with monitoring.recording():
@@ -134,7 +134,7 @@ def test_cpu_predictor_is_eager_and_unchanged(tmp_path, mode):
 def test_outputs_of_two_calls_do_not_alias(tmp_path, mode):
     cpu = torch.device("cpu")
     model, rcfg, spec = _toy(tmp_path, mode, cpu)
-    predict = run_inference.predictor(model, rcfg, spec, mode == "multi_view")
+    predict = serve.predictor(model, rcfg, spec, mode == "multi_view")
     batch = _batch(mode, 4, 32, cpu, 1)
     first, second = predict(batch), predict(batch)
     ptrs = {v.untyped_storage().data_ptr() for v in first.values()}
@@ -181,10 +181,10 @@ def test_card_replay_is_bitwise_eager(tmp_path, card, mode):
         model, rcfg, spec = _toy(tmp_path, mode, card, mixed=True)
     assert rcfg.compute_dtype == torch.bfloat16
     mv = mode == "multi_view"
-    predict = run_inference.predictor(model, rcfg, spec, mv)
+    predict = serve.predictor(model, rcfg, spec, mv)
     batches = [_batch(mode, n, res, card, s) for s in range(4)]
     # the eager reference: a fresh predictor's first call with a key runs eagerly
-    eager = [run_inference.predictor(model, rcfg, spec, mv)(b) for b in batches]
+    eager = [serve.predictor(model, rcfg, spec, mv)(b) for b in batches]
     monitoring.reset()
     with monitoring.recording():
         outs = [predict(b) for b in batches]
@@ -204,4 +204,4 @@ def test_card_replay_is_bitwise_eager(tmp_path, card, mode):
         _assert_equal(out, keep)      # a later call overwrote nothing returned
     assert not torch.equal(outs[1]["global_rot"], outs[2]["global_rot"])
     _assert_equal(again, eager[1])
-    _assert_equal(short_out, run_inference.predictor(model, rcfg, spec, mv)(short))
+    _assert_equal(short_out, serve.predictor(model, rcfg, spec, mv)(short))

@@ -34,7 +34,6 @@ import torch
 
 from smilify_tpu_torch import serve
 from smilify_tpu_torch.cli import export_serving
-from smilify_tpu_torch.cli.run_inference import load_model_from_checkpoint
 from tests.test_torch_inference import RES, _checkpoints
 from tests.test_torch_models import MODEL_TOL, assert_close
 
@@ -55,9 +54,9 @@ def _inputs(mode, batch, n_views=3, seed=0):
 
 
 def _live(ckpt, inputs):
-    model, cfg, rcfg, spec, _ = load_model_from_checkpoint(ckpt, device="cpu")
+    model, _, rcfg, spec, _ = serve.load_model_from_checkpoint(ckpt, device="cpu")
     with torch.no_grad():
-        return serve.build_predict_fn(model, rcfg, spec, cfg.mode == "multi_view")(
+        return serve.build_predict_fn(model, rcfg, spec)(
             *(torch.from_numpy(a) for a in inputs))
 
 

@@ -58,7 +58,7 @@ from smilify_tpu.train import config as jconfig
 from smilify_tpu.train import trainer as jtrainer
 from smilify_tpu.train.multidevice import toy_model_spec as j_toy_spec
 
-from smilify_tpu_torch.cli.train_regressor import make_singleview_apply_fn, make_target_fn
+from smilify_tpu_torch.train.singleview_setup import make_singleview_apply_fn, make_target_fn
 from smilify_tpu_torch.core.spec import toy_model_spec as t_toy_spec
 from smilify_tpu_torch.models import regressor as treg
 from smilify_tpu_torch.models.backbones import FlaxBatchNorm2d

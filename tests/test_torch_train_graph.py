@@ -40,7 +40,7 @@ from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from smilify_tpu_torch._device import shared_constant
-from smilify_tpu_torch.cli.train_regressor import make_singleview_apply_fn
+from smilify_tpu_torch.train.singleview_setup import make_singleview_apply_fn
 from smilify_tpu_torch.core import lbs
 from smilify_tpu_torch.core.spec import toy_model_spec
 from smilify_tpu_torch.models.regressor import batched_camera, compute_batch_loss
